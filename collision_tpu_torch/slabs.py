@@ -1,0 +1,357 @@
+"""Slab-sweep broad phase: the plan and the residual jobs.
+
+Port of collision_tpu/slabs.py. Spheres sort by ``x_slab << zbits |
+quantize(z)``; every 64-sphere chunk of slab x gets one z-window of
+candidate partners in slab x (clipped at the chunk start, for the j > i
+dedup) and one in slab x+1. Windows are conservative supersets, the
+kernel test is exact, and capacity overflows are detected (``ok=False``),
+never silently wrong.
+
+Differences from the JAX plan, none of which changes a shared field:
+sort keys and positions are int64 (torch's uint32 has no ``<<`` and no
+``searchsorted``), and ``slab_r0`` (the TPU kernel's DMA ring) and
+``diag_thr`` (the unported diagonal kernel) are not built.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .columns import CHUNK, LANE, _quantize
+from .kernels import compact
+from .ops import inclusive_scan, scene_bounds, sorted_bucket_starts
+from .utils import round_up
+
+#: x half-stencil: the self slab (with j > i) and slab x+1.
+SLAB_OFFSETS = (0, 1)
+
+#: Row rounding of the stream, kept from the JAX plan (its diagonal
+#: kernel reads row blocks of this size) so the two streams have one
+#: shape.
+DIAG_B = 32
+
+#: Residual-job capacity of the dual-dispatch count; overflow gives
+#: ok=False.
+RESIDUAL_JOBS = 256
+
+#: Residual-pair capacity of the dual-dispatch fill; overflow gives
+#: ok=False.
+RESIDUAL_PAIRS = 4096
+
+NO_PAIR = 0xFFFFFFFF
+
+
+class SlabPlan(NamedTuple):
+    """Everything the slab sweep kernels need, plus host-retry stats."""
+
+    stream: torch.Tensor      # [Rp, 8, 128] f32: xlo ylo zlo xhi yhi zhi id slab
+    starts: torch.Tensor      # int32[gx + 2] slab start indices (+1 pad slab)
+    w0: torch.Tensor          # int32[gx, mc*2] window starts (global)
+    wcap: torch.Tensor        # int32[gx, mc*2] window lengths
+    ok: torch.Tensor          # bool: capacities held (result exact iff True)
+    max_col: torch.Tensor     # int32 stats for host retry
+    max_slab_rows: torch.Tensor
+    rows_rolled: torch.Tensor  # int32: max ceil(window/128) of any window
+    n: int
+    gx: int
+    mc: int
+    slab_rows: int
+
+
+def default_slab_config(n, gx=None):
+    """(gx, col_capacity, slab_rows) from n.
+
+    The JAX package's arithmetic for scenes of unknown statistics: ``gx``
+    targets z-windows of ~CHUNK+24 spheres assuming r_max ~ 1/sqrt(n);
+    pass ``gx`` to pin the slab count and derive only the capacities.
+    (Its r_max/ext sizing serves the hetero engine, not ported yet.)
+    """
+    if gx is None:
+        gx = 3.0 * (n ** 0.5) / 24
+    gx = int(np.clip(round(gx), 1, 4096))
+    occ = n / gx
+    col_cap = int(round_up(int(occ + 6 * occ ** 0.5 + 16), CHUNK))
+    col_cap = min(col_cap, int(round_up(n, CHUNK)))
+    slab_rows = min(col_cap, n) // LANE + 4
+    return gx, col_cap, slab_rows
+
+
+def _xbits_z(gx):
+    # +1 pad slab; +1 so the last slab's upper window threshold
+    # (col+1) << zbits never leaves 32 bits.
+    return 32 - max(int(np.ceil(np.log2(gx + 2))), 1)
+
+
+def _f32(v, device):
+    # Divisors and dividends become float32 tensors: torch turns
+    # ``int / tensor`` into ``reciprocal() * int``, which is not IEEE
+    # division and disagrees with the JAX plan in the last bit.
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def slab_sort_keys(coords, gx, lo_s, ext, r_max):
+    """(int64 ``x_slab << zbits | quantize(z)`` keys, zscale, zext) from
+    the scene statistics; ``zext`` is the z extent, or 1 where that is 0."""
+    dev = coords.device
+    zbits = _xbits_z(gx)
+    zmax = (1 << zbits) - 1
+    one = _f32(1.0, dev)
+    # Slab width >= 2*r_max: colliding pairs land in the same or an
+    # adjacent slab.
+    sx = torch.maximum(2 * r_max, ext[0] / _f32(gx, dev))
+    sx = torch.where(sx > 0, sx, one)
+    col = torch.clamp(((coords[:, 0] - lo_s[0]) / sx).to(torch.int32),
+                      0, gx - 1).to(torch.int64)
+    zext = torch.where(ext[2] > 0, ext[2], one)
+    zscale = _f32(zmax, dev) / zext
+    zq = _quantize(coords[:, 2], lo_s[2], zscale, zmax)
+    return (col << zbits) | zq, zscale, zext
+
+
+def plan_slabs(coords, radii, gx, col_capacity, slab_rows):
+    """Sort by (x-slab, z) and precompute the slab sweep kernels' inputs.
+
+    ``coords`` [n, 3] and ``radii`` [n] are float32 on one device; the
+    plan lives there too.
+    """
+    lo_s, hi_s = scene_bounds(coords)
+    r_max = torch.amax(radii)
+    ext = hi_s - lo_s
+    key, zscale, zext = slab_sort_keys(coords, gx, lo_s, ext, r_max)
+    # A stable sort of the keys plus one gather equals the JAX package's
+    # stable multi-operand lax.sort.
+    key_s, order = torch.sort(key, stable=True)
+    c_s = coords.index_select(0, order)
+    r_s = radii.index_select(0, order)
+    return _plan_from_sorted(
+        key_s, order, c_s[:, 0], c_s[:, 1], c_s[:, 2], r_s, gx,
+        _xbits_z(gx), lo_s[2], zext, zscale, r_max, col_capacity,
+        slab_rows)
+
+
+def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
+                      zext, zscale, r_max, col_capacity, slab_rows):
+    """Stream + window tables from key-sorted sphere data."""
+    dev = key_s.device
+    n = key_s.shape[0]
+    zmax = (1 << zbits) - 1
+    mc = -(-col_capacity // CHUNK)
+    col_s = key_s >> zbits
+
+    # Slab starts over gx + 2 buckets: the pad slab gx stays empty, which
+    # makes the last slab's dx=1 window vacuous.
+    starts = sorted_bucket_starts(
+        col_s, torch.arange(gx + 2, device=dev)).to(torch.int32)
+
+    # --- stream tensor [Rp, 8, 128] ---
+    R = -(-n // LANE)
+    Rp = max(-(-(R + slab_rows + 2) // DIAG_B), R // DIAG_B + 2) * DIAG_B
+    zlo, zhi = z_s - r_s, z_s + r_s
+    comps = [x_s - r_s, y_s - r_s, zlo, x_s + r_s, y_s + r_s, zhi]
+    # Built in int32 so channel 6 carries the id bit patterns (small ids
+    # are float32 denormals) through no float arithmetic at all.
+    bits = [c.view(torch.int32) for c in comps]
+    bits.append(ids_s.to(torch.int32))
+    bits.append(col_s.to(torch.float32).view(torch.int32))
+    inf_bits = int(np.float32(np.inf).view(np.int32))
+    flat = torch.full((8, Rp * LANE), inf_bits, dtype=torch.int32,
+                      device=dev)
+    flat[:, :n] = torch.stack(bits)
+    stream = flat.view(8, Rp, LANE).permute(1, 0, 2).contiguous() \
+        .view(torch.float32)
+
+    # --- exact per-chunk z ranges ---
+    k_idx = torch.arange(mc, device=dev)
+    g0 = starts[:gx, None].long() + k_idx * CHUNK             # [gx, mc]
+    ends = starts[1:gx + 1, None].long()
+    valid_c = g0 < ends
+    pos = g0[..., None] + torch.arange(CHUNK, device=dev)     # [gx, mc, 64]
+    inwin = pos < ends[..., None]
+    pos = pos.clamp(max=n - 1)
+    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
+    lo_chunk = torch.where(inwin, zlo[pos], inf).amin(-1)
+    hi_chunk = torch.where(inwin, zhi[pos], -inf).amax(-1)
+
+    # Window thresholds in quantized-z space: conservative supersets by
+    # monotonicity. Clamp to the finite scene range first (empty chunks
+    # carry +-inf); ``zext`` is the exact scene z extent.
+    zhi_scene = lo_z + zext
+    qlo = _quantize(torch.clamp(lo_chunk - r_max, lo_z, zhi_scene),
+                    lo_z, zscale, zmax)
+    qhi = _quantize(torch.clamp(hi_chunk + r_max, lo_z, zhi_scene),
+                    lo_z, zscale, zmax)
+
+    # One batched composite-key searchsorted for all (offset, lo/hi)
+    # thresholds.
+    c_idx = torch.arange(gx, device=dev)
+    key_q = []
+    for dx in SLAB_OFFSETS:
+        cb = ((c_idx + dx) << zbits)[:, None]
+        key_q += [cb + qlo, cb + qhi + 1]
+    all_pos = sorted_bucket_starts(
+        key_s, torch.stack(key_q).reshape(-1)).reshape(4, gx, mc)
+
+    w0_list, wcap_list = [], []
+    for off, dx in enumerate(SLAB_OFFSETS):
+        w0 = all_pos[2 * off]
+        wend = all_pos[2 * off + 1]
+        if dx == 0:
+            # Self slab: the j > i dedup kills everything below the
+            # chunk start, so clip the window there.
+            w0 = torch.maximum(w0, g0)
+        w0 = torch.where(valid_c, w0, 0)
+        w0_list.append(w0)
+        wcap_list.append(torch.where(valid_c, (wend - w0).clamp_min(0), 0))
+    w0_tab = torch.stack(w0_list, -1).reshape(gx, mc * 2).to(torch.int32)
+    wcap_tab = torch.stack(wcap_list, -1).reshape(gx, mc * 2) \
+        .to(torch.int32)
+    rows_rolled = torch.amax((wcap_tab + LANE - 1) // LANE)
+
+    # --- capacity checks (host retry stats; never silently wrong) ---
+    max_col = torch.amax(starts[1:gx + 1] - starts[:gx])
+    rows_needed = (starts[1:gx + 1] + (LANE - 1)) // LANE \
+        - starts[:gx] // LANE
+    max_slab = torch.amax(rows_needed)
+    ok = (max_col <= col_capacity) & (max_slab + 2 <= slab_rows)
+    return SlabPlan(stream, starts, w0_tab, wcap_tab, ok, max_col,
+                    max_slab, rows_rolled, n=n, gx=gx, mc=mc,
+                    slab_rows=slab_rows)
+
+
+def plan_from_numpy(d, device):
+    """The port's :class:`SlabPlan` from the JAX ``SlabPlan``'s fields
+    given as numpy arrays and ints (``d`` maps field name to value), so
+    both packages' kernels can run on one identical plan."""
+    def t(name):
+        return torch.from_numpy(np.array(d[name])).to(device)
+
+    return SlabPlan(
+        t("stream"), t("starts"), t("w0"), t("wcap"), t("ok"),
+        t("max_col"), t("max_slab_rows"), t("rows_rolled"),
+        n=int(d["n"]), gx=int(d["gx"]), mc=int(d["mc"]),
+        slab_rows=int(d["slab_rows"]))
+
+
+def _residual_mask_tables(plan, j_cap):
+    """The [J, 256, 256] overlap mask of every window remainder past the
+    first 128 lanes of a plan, plus the per-job id channels.
+
+    Each (chunk, offset) window wider than 128 lanes contributes one job
+    per 128-lane segment of its remainder, the job list is compacted to
+    ``j_cap`` slots, and each job's lanes [w0 + 128(1+seg),
+    w0 + min(wcap, 128(2+seg))) are tested against its whole chunk with
+    one dense compare. ``ok`` is False when the job list overflowed.
+
+    Returns (m bool[J, 256, 256], a_idf, b_idf f32[J, 256] — the id
+    channel of the fetched a/b lanes — and ok).
+    """
+    stream, starts, mc = plan.stream, plan.starts, plan.mc
+    w0f, wcf = plan.w0.reshape(-1), plan.wcap.reshape(-1)
+    noff = len(SLAB_OFFSETS)     # flat tables: (slab * mc + k) * noff + off
+    dev = stream.device
+    T = w0f.shape[0]
+
+    res = torch.clamp_min(wcf - LANE, 0)
+    nseg = (res + LANE - 1) // LANE               # 128-lane residual segments
+    ic = inclusive_scan(nseg)
+    nj = ic[-1]
+    ok = nj <= j_cap
+
+    ordj = torch.arange(j_cap, dtype=torch.int32, device=dev)
+    sel = torch.clamp_max(sorted_bucket_starts(ic, ordj + 1), T - 1)
+    live = ordj < nj
+    # Segment index within the owning entry: jobs for entry e occupy
+    # ordinals [ic[e] - nseg[e], ic[e]).
+    seg = torch.clamp_min(ordj - (ic[sel] - nseg[sel]), 0).long()
+
+    ck = sel // noff                # (slab, chunk); sel % noff = offset
+    x = ck // mc
+    k = ck % mc
+    g0 = starts[x].long() + k * CHUNK
+    aend = starts[x + 1].long()
+    # The job's lanes as [w0j + 128, w0j + wcj), w0j pre-shifted by the
+    # segment.
+    shift = seg * LANE
+    w0j = w0f[sel].long() + shift
+    wcj = torch.clamp_max(
+        torch.where(live, wcf[sel].long(), 0) - shift, 2 * LANE)
+
+    Rp = stream.shape[0]
+    arow = torch.clamp(g0 // LANE, 0, Rp - 2)
+    brow = torch.clamp((w0j + LANE) // LANE, 0, Rp - 2)
+    rows = torch.stack([arow, arow + 1, brow, brow + 1], dim=1)  # [J, 4]
+    quad = stream[rows]                                   # [J, 4, 8, 128]
+    lane2 = torch.arange(2 * LANE, device=dev)
+    apos = arow[:, None] * LANE + lane2                  # [J, 256]
+    jpos = brow[:, None] * LANE + lane2
+
+    def comp(rows2, c):
+        return rows2[:, :, c].reshape(-1, 2 * LANE)       # [J, 256]
+
+    a6, b6 = quad[:, :2], quad[:, 2:]
+    a_ok = (apos >= g0[:, None]) & (apos < torch.minimum(
+        g0 + CHUNK, aend)[:, None])
+    b_ok = (jpos >= (w0j + LANE)[:, None]) & (jpos < (w0j + wcj)[:, None])
+    # j > i holds by construction: self-offset jobs start past the chunk,
+    # cross jobs live in a later slab.
+    m = a_ok[:, :, None] & b_ok[:, None, :]
+    for lo_c, hi_c in ((0, 3), (1, 4), (2, 5)):
+        m &= comp(a6, hi_c)[:, :, None] > comp(b6, lo_c)[:, None, :]
+        m &= comp(a6, lo_c)[:, :, None] < comp(b6, hi_c)[:, None, :]
+    return m, comp(a6, 6), comp(b6, 6), ok
+
+
+def residual_count(plan, j_cap=RESIDUAL_JOBS):
+    """(int64 count, ok) of the window lanes beyond the first 128: the
+    part of each window that the one-row sweep kernels clip."""
+    m, _, _, ok = _residual_mask_tables(plan, j_cap)
+    return m.sum(), ok
+
+
+def residual_row_mask(plan, p_cap=RESIDUAL_PAIRS):
+    """The residual mask reduced to its hit rows: (small bool[R_cap, 256]
+    — the ascending a-rows holding a pair, at most ``p_cap`` —, rowsel,
+    a_idf, b_idf, count, ok). Hits are rare by construction, so only
+    the hit rows reach the compaction kernel."""
+    m, a_idf, b_idf, ok = _residual_mask_tables(plan, RESIDUAL_JOBS)
+    L2 = 2 * LANE
+    mr = m.reshape(-1, L2)                          # [J*256, 256]
+    Rm = mr.shape[0]
+    rowcnt = mr.sum(dim=1)
+    count = rowcnt.sum()
+    ok = ok & (count <= p_cap)
+
+    R_cap = min(p_cap, Rm)
+    ic = inclusive_scan((rowcnt > 0).to(torch.int32))
+    ordr = torch.arange(R_cap, dtype=torch.int32, device=m.device)
+    rowsel = torch.clamp_max(sorted_bucket_starts(ic, ordr + 1), Rm - 1)
+    small = mr[rowsel] & (ordr < ic[-1])[:, None]
+    return small, rowsel, a_idf, b_idf, count, ok
+
+
+def residual_pairs(plan, p_cap=RESIDUAL_PAIRS):
+    """(ida[p_cap], idb[p_cap], count, ok): original-id pairs of the
+    clipped window remainders, in ascending (job, a-row, lane) order —
+    the fill-side counterpart of :func:`residual_count`. Ids are uint32
+    values in int64; dead slots hold 0xFFFFFFFF. ``ok`` is False when
+    the job list or ``p_cap`` overflowed (the result is then a correct
+    prefix)."""
+    small, rowsel, a_idf, b_idf, count, ok = residual_row_mask(plan, p_cap)
+    L2 = 2 * LANE
+    R_cap = small.shape[0]
+    idx, _ = compact.compact_mask(small.reshape(-1), max(p_cap, 8))
+    idx = idx[:p_cap]
+    live = idx != NO_PAIR
+    fl = torch.clamp_max(idx, R_cap * L2 - 1)
+    fr = rowsel[fl // L2].long()                  # global (job, a) row
+    bi = fl % L2
+    ida = _id_values(a_idf.reshape(-1)[fr])
+    idb = _id_values(b_idf.reshape(-1)[(fr // L2) * L2 + bi])
+    return (torch.where(live, ida, NO_PAIR), torch.where(live, idb, NO_PAIR),
+            count, ok)
+
+
+def _id_values(idf):
+    """uint32 ids, as int64, from the stream's id channel bit patterns."""
+    return idf.contiguous().view(torch.int32).long() & 0xFFFFFFFF

@@ -1,0 +1,193 @@
+"""Device profile of collision_tpu_torch's count and fill steps on one
+NVIDIA GPU.
+
+    python3 profile_steps.py [--out DIR]
+
+The scene is chip_smoke.py's: 1M uniform spheres from seed 4, radii
+U(0, 1/sqrt(n)), default slab config. Prints one JSON line per reading:
+
+- ``stage``: each stage of a step (plan, sweep kernel, residual jobs,
+  fill), median of 10 samples after warm-up: CUDA-event ms around one
+  call, and host enqueue ms (the call returning, before the sync).
+- ``step``: unprofiled median ms of the whole count and fill steps.
+- ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
+  Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
+  read back. Device ops per step (kernel, memset and memcpy events),
+  device busy ms per step (union of their intervals), profiled wall ms
+  per step, and the device's idle share of
+  the unprofiled step (1 - busy / step ms) and of the profiled wall. The
+  profiler slows the host, so the profiled wall is not the step time.
+  The divisor is checked: the step's sweep kernel must appear exactly
+  once per profiled step.
+- ``kernel``: device-only ms per launch of each hand-written kernel, from
+  the trace.
+- ``top``: the largest device items of each step.
+
+Exits non-zero when there is no CUDA device or the divisor check fails.
+"""
+
+import argparse
+import collections
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+N = 1_000_000
+SEED = 4
+CAPACITY = 16384
+STEPS = 5
+
+#: The hand-written kernels, by their demangled names in the trace.
+KERNELS = re.compile(
+    r"::(slab_count_kernel|slab_masks_kernel|count_kernel|scan_kernel|"
+    r"write_kernel)\(")
+DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
+
+
+def emit(kind, **fields):
+    print(json.dumps({kind: fields.pop("name", kind), **fields}), flush=True)
+
+
+def timed(fn, reps=10, warmup=2):
+    """(median CUDA-event ms, median host enqueue ms) of single calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        ev.append(start.elapsed_time(end))
+    return statistics.median(ev), statistics.median(host)
+
+
+def union_ms(intervals):
+    """Total length of the union of (start, end) intervals, µs -> ms."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel):
+    """Profile ``steps`` calls of ``fn``; returns False if the divisor
+    check fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    trace = out_dir / f"trace_{label}.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    busy = union_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / steps
+    by_kernel = collections.defaultdict(list)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        m = KERNELS.search(e["name"])
+        if m:
+            by_kernel[m.group(1)].append(e["dur"] / 1e3)
+        item = by_name[e["name"][:100]]
+        item[0] += e["dur"] / 1e3 / steps
+        item[1] += 1
+    sweeps = len(by_kernel.get(sweep_kernel, ()))
+    emit("profile", name=label, steps=steps, device_ops_per_step=len(events) / steps,
+         device_busy_ms_per_step=busy, step_ms=step_ms,
+         idle_share_of_step=1 - busy / step_ms,
+         profiled_wall_ms_per_step=wall, idle_share_of_profiled_wall=1 - busy / wall,
+         sweep_kernel_launches=sweeps, trace=str(trace))
+    for name, durs in sorted(by_kernel.items()):
+        emit("kernel", name=name, step=label, launches=len(durs),
+             device_ms_per_launch=statistics.median(durs))
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        emit("top", name=name, step=label, ms_per_step=ms,
+             launches_per_step=cnt / steps)
+    if sweeps != steps:
+        print(f"profile_steps: {label}: {sweeps} {sweep_kernel} launches in "
+              f"{steps} steps", file=sys.stderr)
+        return False
+    return True
+
+
+def main():
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_steps: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    from collision_tpu_torch import collide, fill, slabs
+    from collision_tpu_torch.kernels import slab_sweep
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED)
+    coords = torch.from_numpy(rng.random((N, 3)).astype("float32")).to(dev)
+    radii = torch.from_numpy(
+        rng.uniform(0, 1 / N ** 0.5, N).astype("float32")).to(dev)
+    gx, cap, rows = slabs.default_slab_config(N)
+    plan = slabs.plan_slabs(coords, radii, gx, cap, rows)
+    args4 = (plan.stream, plan.starts, plan.w0, plan.wcap)
+
+    stages = {
+        "plan_slabs": lambda: slabs.plan_slabs(coords, radii, gx, cap, rows),
+        "slab_count_kernel": lambda: slab_sweep.slab_count(*args4),
+        "residual_count": lambda: slabs.residual_count(plan),
+        "slab_masks_kernel": lambda: slab_sweep.slab_masks(*args4),
+        "residual_pairs": lambda: slabs.residual_pairs(plan),
+        "slab_fill_from_plan": lambda: fill.slab_fill_from_plan(plan, CAPACITY),
+    }
+    for name, fn in stages.items():
+        ev, host = timed(fn)
+        emit("stage", name=name, event_ms=ev, host_enqueue_ms=host)
+
+    steps = {"count": (lambda: collide(coords, radii, 0), "slab_count_kernel"),
+             "fill": (lambda: collide(coords, radii, CAPACITY), "slab_masks_kernel")}
+    good = True
+    for label, (fn, sweep_kernel) in steps.items():
+        ev, host = timed(fn)
+        emit("step", name=label, event_ms=ev, host_enqueue_ms=host)
+        good &= profile_step(label, fn, STEPS, ev, out_dir, sweep_kernel)
+    return 0 if good else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

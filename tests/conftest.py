@@ -27,6 +27,11 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_per_module():
     """Bound the XLA CPU compiler's in-process accumulation.
