@@ -2,15 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from collision_tpu_torch/csrc, drives the port's
-main path through ``collide`` (a count-only step and a 16384-capacity
-fill on 1M uniform spheres from seed 4, radii U(0, 1/sqrt(n)), as in
-bench.py) with the kernel launch counters reset just before, checks both
-against an independent k-d tree oracle and against the same pipeline run
-with every kernel's plain PyTorch version, repeats the check at a pinned
-gx=300, compares each kernel with its plain version at the main path's
-shapes, and times them with CUDA events: the steps one call at a time
-(closed loop), each kernel and its plain version over back-to-back calls.
+Builds the CUDA kernels from collision_tpu_torch/csrc and drives the
+port's two engines through ``collide`` on uniform spheres from seed 4,
+radii U(0, 1/sqrt(n)), as in bench.py:
+
+1. the slab engine at 1M spheres, a count-only step and a 16384-capacity
+   fill, checked against an independent k-d tree oracle, against the
+   same pipeline run with every kernel's plain PyTorch version, and
+   again at a pinned gx=300;
+2. the column engine at 1M spheres (``method="column"``, count and fill,
+   plus the public ``sweep_count`` at its default aligned rows), checked
+   against the same oracle, the slab count and the plain path;
+3. ``auto`` below the slab crossovers (262144 spheres with capacity
+   16384 and a truncated capacity 1024, 32768 count-only and 16384),
+   which must route to the column kernels and match its own oracle.
+
+Each engine's main path runs with the kernel launch counters reset just
+before and read just after. Each kernel is compared with its plain
+version at the shapes its path gives it, and timed with CUDA events:
+the steps one call at a time (closed loop), each kernel and its plain
+version over back-to-back calls.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -32,6 +43,11 @@ N = 1_000_000
 SEED = 4
 CAPACITY = 16384
 PINNED_GX = 300
+#: ``auto``'s scenes below the slab crossovers: (n, capacities).
+AUTO_SCENES = ((262144, (CAPACITY,)), (32768, (0, CAPACITY)))
+TRUNC_CAPACITY = 1024
+SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask")
+COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks")
 #: Back-to-back calls per timing sample of a kernel and its plain version.
 KERNEL_BATCH = 20
 
@@ -78,36 +94,73 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
-    from collision_tpu_torch.kernels import compact, slab_sweep
+    from collision_tpu_torch.kernels import compact, slab_sweep, sweep
 
-    saved = slab_sweep.slab_count, slab_sweep.slab_masks, compact.compact_mask
-    slab_sweep.slab_count = slab_sweep.slab_count_plain
-    slab_sweep.slab_masks = slab_sweep.slab_masks_plain
-    compact.compact_mask = compact.compact_mask_plain
+    swaps = [(slab_sweep, "slab_count"), (slab_sweep, "slab_masks"),
+             (compact, "compact_mask"), (sweep, "sweep_count"),
+             (sweep, "sweep_masks")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_plain"))
     try:
         yield
     finally:
-        slab_sweep.slab_count, slab_sweep.slab_masks, compact.compact_mask = saved
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def check_against_oracle(res_count, res_fill, expected, label):
-    check(bool(res_count.ok), f"{label}: count ok")
-    check(int(res_count.count) == len(expected),
-          f"{label}: count {int(res_count.count)} == oracle {len(expected)}")
-    check(bool(res_fill.ok), f"{label}: fill ok")
-    check(int(res_fill.count) == int(res_count.count),
-          f"{label}: fill total {int(res_fill.count)} == count")
+def check_count(res, expected, label):
+    check(bool(res.ok), f"{label}: count ok")
+    check(int(res.count) == len(expected),
+          f"{label}: count {int(res.count)} == oracle {len(expected)}")
+
+
+def check_fill(res, expected, label):
+    """A fill with room for every pair: ok, the true total, the oracle's
+    pair set, and 0xFFFFFFFF in every unused slot."""
     from collision_tpu_torch.testing import pair_array_to_set
 
-    pairs = res_fill.pairs.cpu().numpy()
-    check(pair_array_to_set(pairs, res_fill.count) == expected,
+    check(bool(res.ok), f"{label}: fill ok")
+    check(int(res.count) == len(expected),
+          f"{label}: fill total {int(res.count)} == oracle")
+    pairs = res.pairs.cpu().numpy()
+    check(pair_array_to_set(pairs, res.count) == expected,
           f"{label}: fill pair set == oracle")
-    tail = pairs[min(int(res_fill.count), CAPACITY):]
+    tail = pairs[min(int(res.count), len(pairs)):]
     check(bool((tail == 0xFFFFFFFF).all()), f"{label}: unused slots hold 0xFFFFFFFF")
+
+
+def check_against_oracle(res_count, res_fill, expected, label):
+    check_count(res_count, expected, label)
+    check_fill(res_fill, expected, label)
+
+
+def uniform_scene(n, dev):
+    """(coords, radii) numpy float32 and on the card: n uniform spheres
+    from SEED, radii U(0, 1/sqrt(n))."""
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    coords_np = rng.random((n, 3)).astype("float32")
+    radii_np = rng.uniform(0, 1 / n ** 0.5, n).astype("float32")
+    return (coords_np, radii_np, torch.from_numpy(coords_np).to(dev),
+            torch.from_numpy(radii_np).to(dev))
+
+
+def counted(fn):
+    """(result of ``fn()``, launches per kernel during it): the counters
+    are reset just before and read after the card has finished."""
+    import torch
+    from collision_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
 
 
 def main():
@@ -122,9 +175,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    from collision_tpu_torch import collide, slabs
-    from collision_tpu_torch.kernels import _build, compact, slab_sweep
-    from collision_tpu_torch.testing import kdtree_collisions
+    from collision_tpu_torch import collide, columns, slabs
+    from collision_tpu_torch.kernels import _build, compact, slab_sweep, sweep
+    from collision_tpu_torch.testing import kdtree_collisions, pair_array_to_set
 
     t0 = time.perf_counter()
     report = _build.build()
@@ -135,23 +188,18 @@ def main():
         if "Used" in line or "spill" in line or "Compiling entry" in line])
 
     dev = torch.device("cuda")
-    rng = np.random.RandomState(SEED)
-    coords_np = rng.random((N, 3)).astype("float32")
-    radii_np = rng.uniform(0, 1 / N ** 0.5, N).astype("float32")
-    coords = torch.from_numpy(coords_np).to(dev)
-    radii = torch.from_numpy(radii_np).to(dev)
+    coords_np, radii_np, coords, radii = uniform_scene(N, dev)
 
-    # --- the main path, counted ---
-    _build.reset_launches()
-    res_count = collide(coords, radii, 0, method="slab")
-    res_fill = collide(coords, radii, CAPACITY, method="slab")
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    # --- the slab engine's main path, counted ---
+    (res_count, res_fill), slab_launches = counted(lambda: (
+        collide(coords, radii, 0, method="slab"),
+        collide(coords, radii, CAPACITY, method="slab")))
     phase("main_path", n=N, capacity=CAPACITY, count=int(res_count.count),
           ok=bool(res_count.ok), fill_total=int(res_fill.count),
-          fill_ok=bool(res_fill.ok), launches=launches)
-    for name, count in launches.items():
-        check(count > 0, f"main path launched {name} ({count}x)")
+          fill_ok=bool(res_fill.ok), launches=slab_launches)
+    for name in SLAB_KERNELS:
+        check(slab_launches[name] > 0,
+              f"main path launched {name} ({slab_launches[name]}x)")
 
     # --- end to end against the oracle and the plain path ---
     t0 = time.perf_counter()
@@ -175,6 +223,8 @@ def main():
     plan = slabs.plan_slabs(coords, radii, gx, cap, rows)
     args = (plan.stream, plan.starts, plan.w0, plan.wcap)
     kernels = []
+
+    launches = dict(slab_launches)
 
     def record(name, source, replaces, err, fn, plain_fn):
         check(err == 0, f"{name}: kernel == plain (max_abs_err {err})")
@@ -223,6 +273,112 @@ def main():
             steps[label + "_plain_ms"] = time_ms(
                 lambda: collide(coords, radii, capacity, method="slab"))
     phase("steps", n=N, **steps)
+
+    # --- the column engine's main path at 1M, counted ---
+    gxy, ccap, crows = columns.default_column_config(N)
+
+    def column_path():
+        count = collide(coords, radii, 0, method="column")
+        fill = collide(coords, radii, CAPACITY, method="column")
+        # The public count entry point at its default (aligned rows).
+        plan = columns.plan_columns(coords, radii, gxy, ccap, crows)
+        return count, fill, plan, sweep.sweep_count(plan)
+
+    (col_count, col_fill, cplan, public_count), col_launches = counted(
+        column_path)
+    phase("column_main_path", n=N, capacity=CAPACITY, gxy=gxy,
+          col_capacity=ccap, slab_rows=crows, count=int(col_count.count),
+          ok=bool(col_count.ok), fill_total=int(col_fill.count),
+          fill_ok=bool(col_fill.ok), public_sweep_count=int(public_count),
+          rows_needed=int(cplan.rows_needed),
+          rows_rolled=int(cplan.rows_rolled), launches=col_launches)
+    for name in COLUMN_KERNELS:
+        check(col_launches[name] > 0,
+              f"column path launched {name} ({col_launches[name]}x)")
+        launches[name] = col_launches[name]
+    check_against_oracle(col_count, col_fill, expected, f"column n={N}")
+    check(int(col_count.count) == int(res_count.count),
+          "column count == slab count")
+    check(bool(cplan.ok) and int(cplan.rows_needed) <= 2
+          and int(public_count) == len(expected),
+          "sweep_count(plan) at aligned rows == oracle")
+    with plain_kernels():
+        plain_col_count = collide(coords, radii, 0, method="column")
+        plain_col_fill = collide(coords, radii, CAPACITY, method="column")
+    check(int(plain_col_count.count) == int(col_count.count),
+          "column count == plain path's count")
+    check(torch.equal(plain_col_fill.pairs, col_fill.pairs),
+          "column fill pairs == plain path's pairs, bit for bit")
+
+    # --- auto below the slab crossovers ---
+    auto_scenes = {}
+    for n_auto, capacities in AUTO_SCENES:
+        a_np, ar_np, a, ar = uniform_scene(n_auto, dev)
+        a_expected = kdtree_collisions(a_np, ar_np)
+        auto_scenes[n_auto] = (a, ar)
+        results, auto_launches = counted(
+            lambda: [collide(a, ar, cap) for cap in capacities])
+        phase("auto", n=n_auto, capacities=capacities, pairs=len(a_expected),
+              counts=[int(res.count) for res in results],
+              oks=[bool(res.ok) for res in results], launches=auto_launches)
+        want = {"sweep_count_rolled": 0 in capacities,
+                "sweep_masks": any(capacities)}
+        for name, ran in auto_launches.items():
+            check((ran > 0) == want.get(name, False),
+                  f"auto n={n_auto}: {name} launched {ran}x")
+        for cap, res in zip(capacities, results):
+            if cap:
+                check_fill(res, a_expected, f"auto n={n_auto}")
+            else:
+                check_count(res, a_expected, f"auto n={n_auto}")
+        if n_auto == AUTO_SCENES[0][0]:
+            cut = collide(a, ar, TRUNC_CAPACITY)
+            with plain_kernels():
+                plain_cut = collide(a, ar, TRUNC_CAPACITY)
+            check(bool(cut.ok) and int(cut.count) == len(a_expected),
+                  f"auto n={n_auto} capacity {TRUNC_CAPACITY}: true total")
+            check(torch.equal(cut.pairs, plain_cut.pairs),
+                  f"auto n={n_auto} capacity {TRUNC_CAPACITY}: pairs == plain "
+                  "path's, bit for bit")
+            got = pair_array_to_set(cut.pairs.cpu().numpy(), TRUNC_CAPACITY)
+            check(len(got) == TRUNC_CAPACITY and got <= a_expected,
+                  f"auto n={n_auto} capacity {TRUNC_CAPACITY}: distinct "
+                  "oracle pairs")
+
+    # --- each column kernel against its plain version at auto's fill
+    # plan (262144 spheres) ---
+    a, ar = auto_scenes[AUTO_SCENES[0][0]]
+    plan = columns.plan_columns(a, ar, *columns.default_column_config(
+        AUTO_SCENES[0][0]))
+    phase("column_kernel_plan", n=AUTO_SCENES[0][0], gxy=plan.gxy, mc=plan.mc,
+          rows_needed=int(plan.rows_needed), rows_rolled=int(plan.rows_rolled))
+    for rolled, name, line in ((True, "sweep_count_rolled", 226),
+                               (False, "sweep_count_aligned", 78)):
+        record(name, "collision_tpu_torch/csrc/sweep.cu",
+               f"collision_tpu/kernels/sweep.py:{line}",
+               abs(int(sweep.sweep_count(plan, 2, rolled))
+                   - int(sweep.sweep_count_plain(plan, 2, rolled))),
+               lambda: sweep.sweep_count(plan, 2, rolled),
+               lambda: sweep.sweep_count_plain(plan, 2, rolled))
+    masks = sweep.sweep_masks(plan, 2)
+    plain_masks = sweep.sweep_masks_plain(plan, 2)
+    check(torch.equal(masks, plain_masks), "sweep_masks: torch.equal")
+    record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
+           "collision_tpu/kernels/sweep.py:382", max_abs_err(masks, plain_masks),
+           lambda: sweep.sweep_masks(plan, 2),
+           lambda: sweep.sweep_masks_plain(plan, 2))
+
+    # --- column step times, kernel path and plain path ---
+    for n_s, (c, r) in ((AUTO_SCENES[0][0], auto_scenes[AUTO_SCENES[0][0]]),
+                        (N, (coords, radii))):
+        col_steps = {}
+        for label, capacity in (("count_step", 0), ("fill_step", CAPACITY)):
+            col_steps[label + "_ms"] = time_ms(
+                lambda: collide(c, r, capacity, method="column"))
+            with plain_kernels():
+                col_steps[label + "_plain_ms"] = time_ms(
+                    lambda: collide(c, r, capacity, method="column"))
+        phase("column_steps", n=n_s, **col_steps)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

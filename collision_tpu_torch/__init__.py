@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of collision_tpu's slab engine.
+"""PyTorch + CUDA port of collision_tpu's slab and column engines.
 
 The port keeps the JAX package's names and contracts: ``collide`` returns
 the exact set of strictly-overlapping sphere-AABB pairs of original ids,
@@ -8,8 +8,9 @@ on a CUDA tensor every kernel of the path is a hand-written sm_90a kernel
 (``csrc/``, built on first use); on a CPU tensor each kernel's plain
 PyTorch version runs instead.
 
-This slice covers ``method="slab"`` for float32 count-only steps and for
-fills up to ``fill.BIG_FILL_THRESHOLD`` pairs.
+Ported: ``method="slab"``, ``"column"`` and ``"auto"`` (the default,
+which routes between the two by n), for float32 count-only steps and
+for fills up to ``fill.BIG_FILL_THRESHOLD`` pairs.
 """
 
 from .collider import CollisionResult, collide

@@ -15,10 +15,38 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fill import BIG_FILL_THRESHOLD, slab_mask_fill
+from .columns import CHUNK, _f32, default_column_config, plan_columns
+from .fill import BIG_FILL_THRESHOLD, mask_fill, slab_mask_fill
+from .hetero import default_nb
 from .kernels.slab_sweep import slab_count_dual
+from .kernels.sweep import sweep_count_guarded
 from .ops import scene_bounds
 from .slabs import NO_PAIR, default_slab_config, plan_slabs
+
+#: Default rows per window of the column count and fill.
+DEFAULT_RPW = 2
+
+#: n at or above which "auto" prefers the slab engine for count-only
+#: steps, and for fills; the column engine below. The JAX package's
+#: crossovers, measured on a TPU and copied unchanged: the H100's own are
+#: still to be measured.
+SLAB_AUTO_THRESHOLD = 65536
+SLAB_FILL_AUTO_THRESHOLD = 524288
+
+#: Smallest n at which "auto" pays the radius-spread probe.
+HETERO_AUTO_MIN = 16384
+
+#: Predicted mean z-window slack (lanes past the 64-lane chunk span)
+#: above which the slab engine's one-row dual dispatch stops fitting.
+SLAB_SLACK_MAX = 40.0
+
+#: Minimum factor by which parking the default big set must shrink the
+#: predicted test reach (2*r_mean + 2*r_max) for a scene to count as
+#: heterogeneous.
+HETERO_GAIN_MIN = 2.0
+
+_PORTED = ("auto", "slab", "column")
+_UNPORTED = ("hetero", "grid", "bvh")
 
 
 class CollisionResult(NamedTuple):
@@ -52,7 +80,8 @@ class CollisionResult(NamedTuple):
         return bool(self.count > self.pairs.shape[0])
 
 
-def collide(coords, radii, capacity, method="slab", gx=None):
+def collide(coords, radii, capacity, method="auto", gxy=None,
+            col_capacity=None, slab_rows=None, rpw=DEFAULT_RPW, gx=None):
     """One broad-phase step on the device of ``coords``.
 
     Args:
@@ -60,17 +89,29 @@ def collide(coords, radii, capacity, method="slab", gx=None):
       radii:  float32 [n] sphere radii, on the same device.
       capacity: pair-buffer capacity; 0 = count-only. At most
         ``fill.BIG_FILL_THRESHOLD``.
-      method: "slab", the only engine ported so far.
+      method: "slab" (x-sorted two-offset slab sweep, slabs.py),
+        "column" (z-sorted column sweep + mask fill, columns.py), or
+        "auto": slab counts at n >= ``SLAB_AUTO_THRESHOLD``, slab fills
+        at n >= ``SLAB_FILL_AUTO_THRESHOLD``, the column engine below.
+        At n >= ``HETERO_AUTO_MIN`` "auto" first probes the radius
+        spread, which costs one host sync per call; a scene it finds
+        heterogeneous needs the hetero engine, which is not ported, and
+        raises ``NotImplementedError`` rather than returning a uniform
+        engine's ``ok=False`` answer.
+      gxy, col_capacity, slab_rows, rpw: column-engine knobs; a None
+        resolves from ``columns.default_column_config(n)``.
       gx: slab count of the slab engine; None derives it from n
         (``slabs.default_slab_config``).
 
     Returns:
       :class:`CollisionResult`.
     """
-    if method != "slab":
+    if method in _UNPORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet (ROADMAP.md, modules to "
-            "port); only 'slab' is")
+            f"port); {', '.join(map(repr, _PORTED))} are")
+    if method not in _PORTED:
+        raise ValueError(f"Unknown method: {method}")
     if coords.dtype != torch.float32 or radii.dtype != torch.float32:
         raise NotImplementedError(
             "only float32 is ported; the float64 engines (BVH, run-expansion "
@@ -84,6 +125,15 @@ def collide(coords, radii, capacity, method="slab", gx=None):
             "large-capacity emission is not ported yet (ROADMAP.md, modules "
             "item 8)")
     n = coords.shape[0]
+    if method == "auto":
+        if _route_hetero_eager(coords, radii) is not None:
+            raise NotImplementedError(
+                "this scene's radius spread needs the hetero engine, which "
+                "is not ported yet (ROADMAP.md, modules item 9)")
+        if capacity == 0:
+            method = "slab" if n >= SLAB_AUTO_THRESHOLD else "column"
+        else:
+            method = "slab" if n >= SLAB_FILL_AUTO_THRESHOLD else "column"
     lo_scene, hi_scene = scene_bounds(coords)
     if n == 1:
         pairs = torch.full((capacity, 2), NO_PAIR, dtype=torch.int64,
@@ -91,9 +141,31 @@ def collide(coords, radii, capacity, method="slab", gx=None):
         zero = torch.zeros((), dtype=torch.int64, device=coords.device)
         ok = torch.ones((), dtype=torch.bool, device=coords.device)
         return CollisionResult(zero, pairs, lo_scene, hi_scene, ok)
-    s_gx, s_cap, s_rows = default_slab_config(n, gx=gx)
-    return _slab_collide(coords, radii, capacity, s_gx, s_cap, s_rows,
-                         lo_scene, hi_scene)
+    if method == "slab":
+        s_gx, s_cap, s_rows = default_slab_config(n, gx=gx)
+        return _slab_collide(coords, radii, capacity, s_gx, s_cap, s_rows,
+                             lo_scene, hi_scene)
+    auto = default_column_config(n)
+    return _column_collide(
+        coords, radii, capacity, auto[0] if gxy is None else gxy,
+        auto[1] if col_capacity is None else col_capacity,
+        auto[2] if slab_rows is None else slab_rows, rpw, lo_scene,
+        hi_scene)
+
+
+def _column_collide(coords, radii, capacity, gxy, col_capacity, slab_rows,
+                    rpw, lo_scene, hi_scene):
+    """Column-engine frame: the rolled count sweep, or the aligned masks
+    kernel plus the sparse emission."""
+    if capacity == 0:
+        plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
+        count, no_wrap = sweep_count_guarded(plan, rpw=rpw, rolled=True)
+        ok = plan.ok & (plan.rows_rolled <= rpw) & no_wrap
+        return CollisionResult(count, None, lo_scene, hi_scene, ok)
+    ida, idb, total, ok = mask_fill(
+        coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=rpw)
+    return CollisionResult(total, torch.stack([ida, idb], dim=1), lo_scene,
+                           hi_scene, ok)
 
 
 def _slab_collide(coords, radii, capacity, gx, col_capacity, slab_rows,
@@ -110,3 +182,57 @@ def _slab_collide(coords, radii, capacity, gx, col_capacity, slab_rows,
         coords, radii, capacity, gx, col_capacity, slab_rows)
     return CollisionResult(total, torch.stack([ida, idb], dim=1), lo_scene,
                            hi_scene, ok)
+
+
+def _hetero_stats(coords, radii, nb):
+    """f32[7] = (r_max, r_small, r_mean_small, r_mean_all, ext_x, ext_y,
+    ext_z): the radius spread after parking the ``nb`` largest, the
+    small-class and whole-scene mean radii, and the scene extents, in
+    one tensor so the caller pays one host sync."""
+    n = radii.shape[0]
+    top = torch.topk(radii, nb + 1).values
+    lo, hi = scene_bounds(coords)
+    rsum = radii.sum()
+    mean_small = (rsum - top[:nb].sum()) / _f32(max(n - nb, 1), radii.device)
+    mean_all = rsum / _f32(n, radii.device)
+    return torch.cat(
+        [torch.stack([top[0], top[nb], mean_small, mean_all]), hi - lo])
+
+
+def _predicted_slab_slack(n, r_max, r_mean, ext):
+    """Mean z-window slack (lanes) of the dual-dispatch slab engine on an
+    n-sphere scene with the given radius stats; the engine fits when
+    this stays under ``SLAB_SLACK_MAX``."""
+    ext_x, _, ext_z = (max(float(e), 0.0) for e in ext)
+    gx_f = default_slab_config(
+        n, r_max=max(float(r_max), 1e-30), ext=ext_x)[0]
+    z_lanes = n / max(ext_z, 1e-30)
+    return (2.0 * float(r_mean) + 2.0 * float(r_max)) * z_lanes \
+        / max(gx_f, 1)
+
+
+def _route_hetero_eager(coords, radii):
+    """(r_small, r_mean_small, ext[3]) when "auto" should use the hetero
+    engine, None otherwise.
+
+    Below ``HETERO_AUTO_MIN`` spheres it decides nothing and costs
+    nothing. At or above it, one probe reads the radius spread and the
+    scene extents, one host sync. The scene is heterogeneous when the
+    slab engine's predicted windows exceed ``SLAB_SLACK_MAX`` and
+    parking the big set shrinks the test reach by ``HETERO_GAIN_MIN``.
+    The big set is ``hetero.default_nb(n)``: the JAX package's clamping
+    of a caller's ``nb`` (``_effective_nb``) comes with the hetero
+    engine's ``nb`` knob.
+    """
+    n = coords.shape[0]
+    if n < HETERO_AUTO_MIN or n <= CHUNK:
+        return None
+    s = _hetero_stats(coords, radii, default_nb(n)).cpu().tolist()
+    r_max, r_small, r_mean_s, r_mean_all = s[:4]
+    ext = s[4:7]
+    if _predicted_slab_slack(n, r_max, r_mean_all, ext) <= SLAB_SLACK_MAX:
+        return None
+    gain = (r_mean_all + r_max) / max(r_mean_s + r_small, 1e-30)
+    if gain < HETERO_GAIN_MIN:
+        return None
+    return r_small, r_mean_s, ext

@@ -1,11 +1,12 @@
-"""Pair fill over the slab engine's packed masks.
+"""Pair fill over the sweep engines' packed masks (collision_tpu/fill.py).
 
-Port of the slab part of collision_tpu/fill.py: the masks kernel tests
-every chunk against one row of its windows, the rare window remainders
-past 128 lanes go to ``slabs.residual_pairs``, and a sparse two-level
-emission decodes the mask words into pairs in (mask row, lane, bit)
-order, the residual pairs appended after them. Ids are uint32 values held
-in int64; unused slots hold 0xFFFFFFFF.
+The column fill (``mask_fill``) tests every chunk against ``rpw`` aligned
+rows of its 5 windows. The slab fill (``slab_mask_fill``) tests every
+chunk against one rolled row of its 2 windows, and the rare window
+remainders past 128 lanes go to ``slabs.residual_pairs``, appended after
+the mask pairs. A sparse two-level emission decodes the mask words into
+pairs in (mask row, lane, bit) order. Ids are uint32 values held in
+int64; unused slots hold 0xFFFFFFFF.
 
 Emission is plain PyTorch, as it is plain XLA in the JAX package. Only
 the sparse emission is ported: capacities above ``BIG_FILL_THRESHOLD``
@@ -15,18 +16,14 @@ raise ``NotImplementedError``.
 
 import torch
 
-from .columns import CHUNK, LANE
-from .kernels import slab_sweep
-from .kernels.sweep import mask_groups
+from .columns import CHUNK, LANE, plan_columns
+from .kernels import slab_sweep, sweep
 from .ops import inclusive_scan, sorted_bucket_starts
 from .slabs import NO_PAIR, SLAB_OFFSETS, plan_slabs, residual_pairs
 
 #: Capacity above which the JAX package switches to its blocked and
 #: in-kernel emitters, which are not ported yet.
 BIG_FILL_THRESHOLD = 1 << 21
-
-_NOFF = len(SLAB_OFFSETS)
-
 
 def _popcount(w):
     """Set bits of each uint32 value held in an int64 tensor (SWAR: torch
@@ -50,11 +47,16 @@ def _select_bit(word, rank):
     return pos
 
 
-def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total):
-    """(ida, idb, trunc_safe): the first ``capacity`` pairs of the packed
-    slab masks, in (mask row, lane, bit) order.
+def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
+                    noff, rpw, rolled):
+    """(ida, idb, trunc_safe): the first ``capacity`` pairs of packed
+    sweep masks, in (mask row, lane, bit) order.
 
-    ``W`` is the mask buffer as int64 words [rows, 128], ``rp`` its
+    The masks are the column engine's (``noff=5`` offsets, ``rpw``
+    aligned rows: lane l of window row r is sorted sphere
+    (w0 // 128 + r) * 128 + l) or the slab engine's (``noff=2``,
+    ``rpw=1``, ``rolled=True``: lane l is w0 + l). ``W`` is the mask
+    buffer as int64 words [rows, 128], ``rp`` its
     per-row popcounts. Rows with no set bit, then words with no set bit,
     are compacted away, at most ``capacity + 8`` of each (each kept row
     and word holds a pair, so the prefix is exact; ``trunc_safe`` says
@@ -64,8 +66,8 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total):
     the two sorted positions.
     """
     dev = W.device
-    kg, ng = mask_groups(mc)
-    kgt = kg * _NOFF
+    kg, ng = sweep.mask_groups(mc, rpw)
+    kgt = kg * noff * rpw
     Rw = W.shape[0]
     imax = 2 ** 31 - 1
     cap_k = capacity + 8
@@ -111,17 +113,59 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total):
     sl = (R // 2) % kgt
     nb = R // (2 * kgt)
     colg = nb // ng
-    k = torch.clamp_max((nb % ng) * kg + sl // _NOFF, mc - 1)
-    off = sl % _NOFF
+    k = torch.clamp_max((nb % ng) * kg + sl // (noff * rpw), mc - 1)
+    off = (sl // rpw) % noff
+    r = sl % rpw
     nsort = ids_flat.shape[0]
     i = starts[torch.clamp_max(colg, starts.shape[0] - 1)] + k * CHUNK \
         + h * 32 + bit
-    j = w0_flat[(colg * mc + k) * _NOFF + off] + lane
+    w0u = w0_flat[(colg * mc + k) * noff + off]
+    if rolled:
+        j = w0u + r * LANE + lane
+    else:
+        j = (w0u // LANE + r) * LANE + lane
     ida = ids_flat[torch.clamp(i, 0, nsort - 1)]
     idb = ids_flat[torch.clamp(j, 0, nsort - 1)]
     live = q < torch.clamp_max(total, capacity)
     return (torch.where(live, ida, NO_PAIR), torch.where(live, idb, NO_PAIR),
             safe_r & safe_w)
+
+
+def _mask_words(B):
+    """(W, rp, total): a mask buffer as int64 words [rows, 128], each
+    row's set bits, and the exact int64 number of set bits."""
+    W = B.reshape(-1, LANE).long() & 0xFFFFFFFF
+    rp = _popcount(W).sum(dim=1)
+    return W, rp, rp.sum()
+
+
+def _sorted_ids(plan):
+    """The original ids in sorted order (uint32 values in int64), from
+    the stream's id channel."""
+    return plan.stream[:, 6, :].reshape(-1).view(torch.int32).long() \
+        & 0xFFFFFFFF
+
+
+def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=2):
+    """Column-engine pair fill: (ida[capacity], idb[capacity], total,
+    ok).
+
+    The column plan, the masks kernel at ``rpw`` aligned rows, and the
+    sparse emission. ``total`` is the true int64 pair count even past
+    ``capacity`` (at most ``BIG_FILL_THRESHOLD``; ``collide`` checks
+    it). ``ok`` is False when the plan's capacities or ``rpw`` were too
+    small (``plan.rows_needed > rpw``), when the total reached the JAX
+    package's int32 guard, or when the emission's row cut could have
+    dropped a pair.
+    """
+    plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
+    W, rp, total = _mask_words(sweep.sweep_masks(plan, rpw))
+    ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
+    ida, idb, trunc_safe = _mask_fill_emit(
+        W, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
+        _sorted_ids(plan), capacity, total, noff=sweep.NOFF, rpw=rpw,
+        rolled=False)
+    return ida, idb, total, ok & trunc_safe
 
 
 def slab_fill_from_plan(plan, capacity):
@@ -134,22 +178,17 @@ def slab_fill_from_plan(plan, capacity):
     capacity or the JAX package's int32 guard were exceeded, or when the
     emission's row cut could have dropped a pair.
     """
-    B = slab_sweep.slab_sweep_masks(plan)
-    W = B.reshape(-1, LANE).long() & 0xFFFFFFFF
-    rp = _popcount(W).sum(dim=1)
-    mask_total = rp.sum()
+    W, rp, mask_total = _mask_words(slab_sweep.slab_sweep_masks(plan))
     rida, ridb, rcount, r_ok = residual_pairs(plan)
     total = mask_total + rcount
-    ok = plan.ok & r_ok & (mask_total < 2 ** 31 - 2 ** 26)
-
-    ids_flat = plan.stream[:, 6, :].reshape(-1).view(torch.int32).long() \
-        & 0xFFFFFFFF
+    ok = plan.ok & r_ok & (mask_total < sweep.INT32_GUARD)
     ida, idb, trunc_safe = _mask_fill_emit(
         W, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
-        ids_flat, capacity, mask_total)
+        _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
+        rpw=1, rolled=True)
 
     # Append the residual pairs after the mask pairs.
-    q = torch.arange(capacity, device=B.device)
+    q = torch.arange(capacity, device=W.device)
     tm = torch.clamp_max(mask_total, capacity)
     in_m = q < tm
     qr = torch.clamp(q - tm, 0, rida.shape[0] - 1)

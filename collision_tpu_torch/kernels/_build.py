@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
+``nvcc`` compiles every ``csrc/*.cu`` (with the ``*.cuh`` headers they
+include) into one shared library with a
 plain C interface, on first use, into ``build/collision_tpu_torch/`` at
 the root of the checkout; ``ctypes`` binds it. Nothing here runs at
 import time, so the package imports on a machine with no CUDA toolkit.
@@ -26,7 +27,9 @@ _LIB = _BUILD_DIR / "libcollision_kernels.so"
 #: Kernel launches per wrapper. Each wrapper adds one where it launches
 #: its kernel and nowhere else, so a run can show which kernels its main
 #: path went through.
-LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0}
+LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
+            "sweep_count_rolled": 0, "sweep_count_aligned": 0,
+            "sweep_masks": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +38,10 @@ _ARGTYPES = {
     "slab_count_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
     # stream, starts, w0, wcap, gx, mc, kg, ng, out, cuda stream
     "slab_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # stream, starts, w0, wcap, ncols, mc, rpw, rolled, total, cuda stream
+    "sweep_count_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # stream, starts, w0, wcap, ncols, mc, rpw, kg, ng, out, cuda stream
+    "sweep_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # mask, n, capacity, block counts, total, out, nblk, cuda stream
     "compact_launch": [_P, ctypes.c_longlong, _I, _P, _P, _P, _I, _P],
     # mask elements per compaction block
@@ -69,7 +76,7 @@ def build():
 @functools.cache
 def library():
     """The bound kernel library, built first if a source is newer."""
-    newest = max(p.stat().st_mtime for p in _CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime for p in _CSRC.glob("*.cu*"))
     if not _LIB.exists() or _LIB.stat().st_mtime < newest:
         build()
     lib = ctypes.CDLL(str(_LIB))

@@ -18,7 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .columns import CHUNK, LANE, _quantize
+from .columns import (CHUNK, LANE, _f32, _quantize, build_stream,
+                      chunk_z_ranges)
 from .kernels import compact
 from .ops import inclusive_scan, scene_bounds, sorted_bucket_starts
 from .utils import round_up
@@ -59,16 +60,25 @@ class SlabPlan(NamedTuple):
     slab_rows: int
 
 
-def default_slab_config(n, gx=None):
-    """(gx, col_capacity, slab_rows) from n.
+def default_slab_config(n, r_max=None, ext=None, target_slack=24, gx=None):
+    """(gx, col_capacity, slab_rows) from n and optional scene stats.
 
-    The JAX package's arithmetic for scenes of unknown statistics: ``gx``
-    targets z-windows of ~CHUNK+24 spheres assuming r_max ~ 1/sqrt(n);
-    pass ``gx`` to pin the slab count and derive only the capacities.
-    (Its r_max/ext sizing serves the hetero engine, not ported yet.)
+    ``gx`` targets z-windows of ~CHUNK + ``target_slack`` spheres: the
+    window slack is ~(2*r_mean + 2*r_max) * n / (gx * ext_z), which with
+    scene stats unknown (r_max ~ 1/sqrt(n), the uniform family) gives
+    gx ~ 3*sqrt(n)/target_slack. Given ``r_max`` and the x extent
+    ``ext``, gx is sized from them, and capped at ext/(2*r_max): the
+    plan clamps slab width at 2*r_max, so slabs past that ceiling are
+    empty. Pass ``gx`` to pin the slab count and derive only the
+    capacities.
     """
     if gx is None:
-        gx = 3.0 * (n ** 0.5) / 24
+        if r_max is not None and ext is not None and ext > 0:
+            gx = 3.0 * float(r_max) * n / (float(ext) * target_slack)
+            if r_max > 0:
+                gx = min(gx, float(ext) / (2.0 * float(r_max)))
+        else:
+            gx = 3.0 * (n ** 0.5) / target_slack
     gx = int(np.clip(round(gx), 1, 4096))
     occ = n / gx
     col_cap = int(round_up(int(occ + 6 * occ ** 0.5 + 16), CHUNK))
@@ -81,13 +91,6 @@ def _xbits_z(gx):
     # +1 pad slab; +1 so the last slab's upper window threshold
     # (col+1) << zbits never leaves 32 bits.
     return 32 - max(int(np.ceil(np.log2(gx + 2))), 1)
-
-
-def _f32(v, device):
-    # Divisors and dividends become float32 tensors: torch turns
-    # ``int / tensor`` into ``reciprocal() * int``, which is not IEEE
-    # division and disagrees with the JAX plan in the last bit.
-    return torch.tensor(float(v), dtype=torch.float32, device=device)
 
 
 def slab_sort_keys(coords, gx, lo_s, ext, r_max):
@@ -148,30 +151,15 @@ def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
     R = -(-n // LANE)
     Rp = max(-(-(R + slab_rows + 2) // DIAG_B), R // DIAG_B + 2) * DIAG_B
     zlo, zhi = z_s - r_s, z_s + r_s
-    comps = [x_s - r_s, y_s - r_s, zlo, x_s + r_s, y_s + r_s, zhi]
-    # Built in int32 so channel 6 carries the id bit patterns (small ids
-    # are float32 denormals) through no float arithmetic at all.
-    bits = [c.view(torch.int32) for c in comps]
-    bits.append(ids_s.to(torch.int32))
-    bits.append(col_s.to(torch.float32).view(torch.int32))
-    inf_bits = int(np.float32(np.inf).view(np.int32))
-    flat = torch.full((8, Rp * LANE), inf_bits, dtype=torch.int32,
-                      device=dev)
-    flat[:, :n] = torch.stack(bits)
-    stream = flat.view(8, Rp, LANE).permute(1, 0, 2).contiguous() \
-        .view(torch.float32)
+    stream = build_stream(
+        [x_s - r_s, y_s - r_s, zlo, x_s + r_s, y_s + r_s, zhi], ids_s,
+        col_s.to(torch.float32).view(torch.int32), Rp)
 
     # --- exact per-chunk z ranges ---
-    k_idx = torch.arange(mc, device=dev)
-    g0 = starts[:gx, None].long() + k_idx * CHUNK             # [gx, mc]
-    ends = starts[1:gx + 1, None].long()
-    valid_c = g0 < ends
-    pos = g0[..., None] + torch.arange(CHUNK, device=dev)     # [gx, mc, 64]
-    inwin = pos < ends[..., None]
-    pos = pos.clamp(max=n - 1)
-    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
-    lo_chunk = torch.where(inwin, zlo[pos], inf).amin(-1)
-    hi_chunk = torch.where(inwin, zhi[pos], -inf).amax(-1)
+    lo_chunk, hi_chunk = chunk_z_ranges(starts, gx, mc, zlo, zhi)
+    g0 = starts[:gx, None].long() \
+        + torch.arange(mc, device=dev) * CHUNK                 # [gx, mc]
+    valid_c = g0 < starts[1:gx + 1, None]
 
     # Window thresholds in quantized-z space: conservative supersets by
     # monotonicity. Clamp to the finite scene range first (empty chunks

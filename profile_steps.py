@@ -1,15 +1,18 @@
 """Device profile of collision_tpu_torch's count and fill steps on one
-NVIDIA GPU.
+NVIDIA GPU, for the slab and the column engine.
 
     python3 profile_steps.py [--out DIR]
 
 The scene is chip_smoke.py's: 1M uniform spheres from seed 4, radii
-U(0, 1/sqrt(n)), default slab config. Prints one JSON line per reading:
+U(0, 1/sqrt(n)), each engine's default config. Prints one JSON line per
+reading:
 
 - ``stage``: each stage of a step (plan, sweep kernel, residual jobs,
   fill), median of 10 samples after warm-up: CUDA-event ms around one
   call, and host enqueue ms (the call returning, before the sync).
-- ``step``: unprofiled median ms of the whole count and fill steps.
+- ``step``: unprofiled median ms of the whole count and fill steps of
+  each engine (``count``, ``fill``: slab; ``column_count``,
+  ``column_fill``: column).
 - ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
   Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
   read back. Device ops per step (kernel, memset and memcpy events),
@@ -45,8 +48,8 @@ STEPS = 5
 
 #: The hand-written kernels, by their demangled names in the trace.
 KERNELS = re.compile(
-    r"::(slab_count_kernel|slab_masks_kernel|count_kernel|scan_kernel|"
-    r"write_kernel)\(")
+    r"::(slab_count_kernel|slab_masks_kernel|column_count_kernel<(?:true|false)>|"
+    r"column_masks_kernel|count_kernel|scan_kernel|write_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -155,8 +158,8 @@ def main():
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    from collision_tpu_torch import collide, fill, slabs
-    from collision_tpu_torch.kernels import slab_sweep
+    from collision_tpu_torch import collide, columns, fill, slabs
+    from collision_tpu_torch.kernels import slab_sweep, sweep
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
@@ -166,6 +169,8 @@ def main():
     gx, cap, rows = slabs.default_slab_config(N)
     plan = slabs.plan_slabs(coords, radii, gx, cap, rows)
     args4 = (plan.stream, plan.starts, plan.w0, plan.wcap)
+    ccfg = columns.default_column_config(N)
+    cplan = columns.plan_columns(coords, radii, *ccfg)
 
     stages = {
         "plan_slabs": lambda: slabs.plan_slabs(coords, radii, gx, cap, rows),
@@ -174,13 +179,25 @@ def main():
         "slab_masks_kernel": lambda: slab_sweep.slab_masks(*args4),
         "residual_pairs": lambda: slabs.residual_pairs(plan),
         "slab_fill_from_plan": lambda: fill.slab_fill_from_plan(plan, CAPACITY),
+        "plan_columns": lambda: columns.plan_columns(coords, radii, *ccfg),
+        "column_count_kernel": lambda: sweep.sweep_count(cplan, 2, True),
+        "column_masks_kernel": lambda: sweep.sweep_masks(cplan, 2),
+        "mask_fill": lambda: fill.mask_fill(coords, radii, CAPACITY, *ccfg),
     }
     for name, fn in stages.items():
         ev, host = timed(fn)
         emit("stage", name=name, event_ms=ev, host_enqueue_ms=host)
 
-    steps = {"count": (lambda: collide(coords, radii, 0), "slab_count_kernel"),
-             "fill": (lambda: collide(coords, radii, CAPACITY), "slab_masks_kernel")}
+    steps = {
+        "count": (lambda: collide(coords, radii, 0, method="slab"),
+                  "slab_count_kernel"),
+        "fill": (lambda: collide(coords, radii, CAPACITY, method="slab"),
+                 "slab_masks_kernel"),
+        "column_count": (lambda: collide(coords, radii, 0, method="column"),
+                         "column_count_kernel<true>"),
+        "column_fill": (lambda: collide(coords, radii, CAPACITY,
+                                        method="column"),
+                        "column_masks_kernel")}
     good = True
     for label, (fn, sweep_kernel) in steps.items():
         ev, host = timed(fn)

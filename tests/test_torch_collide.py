@@ -1,15 +1,20 @@
 """Port parity: collision_tpu_torch.collide against the JAX package's
-collide(method="slab") with its Pallas kernels in interpret mode, and
-against the numpy oracle. Count and ok must be equal and the pair buffers
-bit-identical (the order is deterministic in both packages)."""
+collide (methods "slab", "column" and "auto") with its Pallas kernels in
+interpret mode, and against the numpy oracle. Count and ok must be equal
+and the pair buffers bit-identical (the order is deterministic in both
+packages); where ``ok`` is False the results are void and only ``ok`` is
+compared. ``auto``'s radius-spread probe is compared within a float32
+tolerance: its sums run in another order than XLA's."""
 
 import numpy as np
 import pytest
 import torch
 
 import collision_tpu
-from collision_tpu_torch import collide
+from collision_tpu import collider as jcollider
+from collision_tpu_torch import collide, collider
 from collision_tpu_torch.fill import BIG_FILL_THRESHOLD
+from collision_tpu_torch.hetero import default_nb
 from collision_tpu_torch.testing import brute_force_collisions, pair_array_to_set
 
 
@@ -74,9 +79,10 @@ def test_collide_single_sphere():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"method": "column"},
+    {"method": "hetero"},
     {"dtype": torch.float64},
     {"capacity": BIG_FILL_THRESHOLD + 1},
+    {"method": "grid"},
 ])
 def test_collide_unported_paths_raise(kwargs):
     coords, radii = _scene(100, 0.05, 0)
@@ -84,3 +90,98 @@ def test_collide_unported_paths_raise(kwargs):
     with pytest.raises(NotImplementedError):
         collide(torch.from_numpy(coords).to(dtype), torch.from_numpy(radii).to(dtype),
                 kwargs.get("capacity", 0), method=kwargs.get("method", "slab"))
+
+
+def test_collide_unknown_method_raises():
+    coords, radii = _scene(100, 0.05, 0)
+    with pytest.raises(ValueError, match="Unknown method"):
+        collide(torch.from_numpy(coords), torch.from_numpy(radii), 0,
+                method="kdtree")
+
+
+@pytest.mark.parametrize("n,r_max,seed,knobs,capacities", [
+    # capacities: count-only, room for every pair, truncated
+    (800, 1.2 / np.sqrt(800), 21, {}, (0, 8, -100)),
+    # windows of 2-3 rows at rpw=1: both packages say ok=False
+    (900, 0.12, 17, {"gxy": 2, "rpw": 1}, (0, 8)),
+])
+def test_column_collide_matches_jax(n, r_max, seed, knobs, capacities):
+    # "auto" takes the column engine below 16384 spheres in both
+    # packages, so the port's column and auto results are held to the
+    # same JAX column result.
+    coords, radii = _scene(n, r_max, seed)
+    expected = brute_force_collisions(coords, radii)
+    exact = knobs.get("rpw") != 1
+    for extra in capacities:
+        capacity = extra and len(expected) + extra
+        want = collision_tpu.collide(coords, radii, capacity, method="column",
+                                     kernel_mode="interpret", **knobs)
+        for method in ("column", "auto"):
+            got = collide(torch.from_numpy(coords), torch.from_numpy(radii),
+                          capacity, method=method, **knobs)
+            assert bool(got.ok) == bool(want.ok) == exact
+            assert (got.pairs is None) == (capacity == 0)
+            if not exact:
+                continue
+            assert int(got.count) == int(want.count) == len(expected)
+            if capacity:
+                np.testing.assert_array_equal(
+                    got.pairs.numpy(), np.asarray(want.pairs).astype(np.int64))
+                assert pair_array_to_set(
+                    got.pairs, min(capacity, len(expected))) <= expected
+
+
+def _probe_scene(kind, n=16384, seed=0):
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype("float32")
+    if kind == "power_law":
+        radii = (0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.35)
+    else:
+        radii = rng.uniform(0, 1 / np.sqrt(n), n)
+    return coords, radii.astype("float32")
+
+
+@pytest.mark.parametrize("kind,hetero", [("uniform", False),
+                                         ("power_law", True)])
+def test_hetero_probe_matches_jax(kind, hetero):
+    coords, radii = _probe_scene(kind)
+    nb = default_nb(len(radii))
+    assert nb == jcollider._effective_nb(len(radii), None)
+    got = collider._hetero_stats(torch.from_numpy(coords),
+                                 torch.from_numpy(radii), nb)
+    want = np.asarray(jcollider._hetero_stats(coords, radii, nb))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    route = collider._route_hetero_eager(torch.from_numpy(coords),
+                                         torch.from_numpy(radii))
+    jroute = jcollider._route_hetero_eager(coords, radii, "interpret")
+    assert (route is not None) == (jroute is not None) == hetero
+    if hetero:
+        np.testing.assert_allclose(route[:2], jroute[:2], rtol=1e-5)
+
+
+def test_auto_refuses_heterogeneous_scenes():
+    # JAX would run its hetero engine here; the uniform engines' answer
+    # would be ok=False garbage, so the port raises instead.
+    coords, radii = _probe_scene("power_law")
+    for capacity in (0, 64):
+        with pytest.raises(NotImplementedError, match="hetero"):
+            collide(torch.from_numpy(coords), torch.from_numpy(radii),
+                    capacity)
+
+
+@pytest.mark.parametrize("capacity,threshold", [
+    (0, "SLAB_AUTO_THRESHOLD"), (16, "SLAB_FILL_AUTO_THRESHOLD")])
+def test_auto_routes_at_the_crossovers(monkeypatch, capacity, threshold):
+    for name in (threshold, "HETERO_AUTO_MIN", "SLAB_SLACK_MAX",
+                 "HETERO_GAIN_MIN", "DEFAULT_RPW"):
+        assert getattr(collider, name) == getattr(jcollider, name), name
+    coords, radii = _scene(300, 0.05, 3)
+    calls = []
+    monkeypatch.setattr(collider, "_slab_collide",
+                        lambda *args: calls.append("slab"))
+    monkeypatch.setattr(collider, "_column_collide",
+                        lambda *args: calls.append("column"))
+    for at, engine in ((301, "column"), (300, "slab")):
+        monkeypatch.setattr(collider, threshold, at)
+        collide(torch.from_numpy(coords), torch.from_numpy(radii), capacity)
+        assert calls[-1] == engine

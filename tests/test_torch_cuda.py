@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from collision_tpu_torch import collide, slabs
-from collision_tpu_torch.kernels import _build, compact, slab_sweep
+from collision_tpu_torch import collide, columns, slabs
+from collision_tpu_torch.kernels import _build, compact, slab_sweep, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -75,9 +75,53 @@ def test_collide_on_card_matches_cpu(cuda, scene):
     n, r_max, seed, gx = scene
     coords, radii = _scene(n, r_max, seed)
     for capacity in (0, 4096):
-        want = collide(coords, radii, capacity, gx=gx)
-        got = collide(coords.to(cuda), radii.to(cuda), capacity, gx=gx)
+        want = collide(coords, radii, capacity, method="slab", gx=gx)
+        got = collide(coords.to(cuda), radii.to(cuda), capacity,
+                      method="slab", gx=gx)
         assert bool(got.ok) == bool(want.ok)
         assert int(got.count) == int(want.count)
         if capacity:
             assert torch.equal(got.pairs.cpu(), want.pairs)
+
+
+COLUMN_SCENES = [
+    # n, r_max, seed, gxy (None: default config)
+    (2000, 1 / np.sqrt(2000), 0, 4),
+    (40000, 1 / np.sqrt(40000), 1, 16),   # zbits = 23
+    (900, 0.12, 17, 2),                   # windows of up to 3 rows
+]
+
+
+@pytest.mark.parametrize("scene", COLUMN_SCENES)
+def test_column_kernels_match_plain(cuda, scene):
+    n, r_max, seed, gxy = scene
+    coords, radii = _scene(n, r_max, seed)
+    gxy, cap, rows = columns.default_column_config(n, gxy=gxy)
+    plan = columns.plan_columns(coords.to(cuda), radii.to(cuda), gxy, cap,
+                                rows)
+    for rpw in (1, int(plan.rows_needed)):
+        for rolled, name in ((True, "sweep_count_rolled"),
+                             (False, "sweep_count_aligned")):
+            before = _build.LAUNCHES[name]
+            assert int(sweep.sweep_count(plan, rpw, rolled)) \
+                == int(sweep.sweep_count_plain(plan, rpw, rolled))
+            assert _build.LAUNCHES[name] == before + 1
+        before = _build.LAUNCHES["sweep_masks"]
+        assert torch.equal(sweep.sweep_masks(plan, rpw),
+                           sweep.sweep_masks_plain(plan, rpw))
+        assert _build.LAUNCHES["sweep_masks"] == before + 1
+
+
+@pytest.mark.parametrize("scene", COLUMN_SCENES)
+def test_column_collide_on_card_matches_cpu(cuda, scene):
+    n, r_max, seed, gxy = scene
+    coords, radii = _scene(n, r_max, seed)
+    for method, knobs in (("column", {"gxy": gxy}), ("auto", {})):
+        for capacity in (0, 4096):
+            want = collide(coords, radii, capacity, method=method, **knobs)
+            got = collide(coords.to(cuda), radii.to(cuda), capacity,
+                          method=method, **knobs)
+            assert bool(got.ok) == bool(want.ok)
+            assert int(got.count) == int(want.count)
+            if capacity:
+                assert torch.equal(got.pairs.cpu(), want.pairs)

@@ -80,9 +80,22 @@ def test_slab_config(n, gx):
     assert slabs._xbits_z(g) == jslabs._xbits_z(g)
 
 
+@pytest.mark.parametrize("n,r_max,ext", [
+    (10 ** 6, 0.001, 1.0),       # the uniform family's own estimate
+    (10 ** 6, 0.05, 1.0),        # capped at ext / (2 r_max)
+    (16384, 0.01445, 0.9),
+    (5000, 0.0, 1.0),            # no cap at r_max = 0
+    (5000, 0.01, 0.0),           # no extent: the n-only estimate
+])
+def test_slab_config_from_scene_stats(n, r_max, ext):
+    assert slabs.default_slab_config(n, r_max=r_max, ext=ext) \
+        == jslabs.default_slab_config(n, r_max=r_max, ext=ext)
+
+
 @pytest.mark.parametrize("mc", [1, 3, 4, 134, 409, 410, 1000])
 def test_mask_groups(mc):
-    assert sweep.mask_groups(mc) == jsweep.mask_groups(mc, 1)
+    for rpw in (1, 2, 3, 8, 48, 128):
+        assert sweep.mask_groups(mc, rpw) == jsweep.mask_groups(mc, rpw)
 
 
 def test_popcount_and_select_bit():
