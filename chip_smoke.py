@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from collision_tpu_torch/csrc and drives the
-port's two engines through ``collide`` on uniform spheres from seed 4,
-radii U(0, 1/sqrt(n)), as in bench.py:
+port's three engines through ``collide``, on uniform spheres from seed
+4, radii U(0, 1/sqrt(n)), as in bench.py, and on two mixed-radii scenes:
 
 1. the slab engine at 1M spheres, a count-only step and a 16384-capacity
    fill, checked against an independent k-d tree oracle, against the
@@ -15,13 +15,24 @@ radii U(0, 1/sqrt(n)), as in bench.py:
    against the same oracle, the slab count and the plain path;
 3. ``auto`` below the slab crossovers (262144 spheres with capacity
    16384 and a truncated capacity 1024, 32768 count-only and 16384),
-   which must route to the column kernels and match its own oracle.
+   which must route to the column kernels and match its own oracle;
+4. ``auto`` on two mixed-radii scenes at 1M spheres, which must route to
+   the hetero engine: the power-law scene (radii (pareto(2.5) + 0.2) /
+   sqrt(n), clipped at 0.05), whose S-S pass runs on the column engine,
+   and the uniform scene with 512 giants of radius 0.02, whose S-S pass
+   runs on the slab engine; each a count and a fill with room for every
+   pair, checked against a radius-aware k-d tree oracle, and a truncated
+   fill against the plain path.
 
 Each engine's main path runs with the kernel launch counters reset just
 before and read just after. Each kernel is compared with its plain
 version at the shapes its path gives it, and timed with CUDA events:
 the steps one call at a time (closed loop), each kernel and its plain
-version over back-to-back calls.
+version over back-to-back calls. Each kernel's record holds its bound:
+the larger of the bytes it must move (inputs read once, outputs written
+once) at the H100's 3.35 TB/s and its box tests (six float compares
+each, counted from this run's window and chunk tables) at 67 TFLOP/s
+float32.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -48,8 +59,28 @@ AUTO_SCENES = ((262144, (CAPACITY,)), (32768, (0, CAPACITY)))
 TRUNC_CAPACITY = 1024
 SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask")
 COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks")
+#: The hetero scenes' fill capacity: room for every pair of both.
+HETERO_CAPACITY = 1 << 19
+#: Spheres given radius GIANT_RADIUS in the giants scene.
+GIANTS = 512
+GIANT_RADIUS = 0.02
+#: (engine and knobs "auto" must route to, kernels its path launches).
+HETERO_ROUTES = {
+    "hetero_powerlaw": (("column", 26, 1728, 313, 3),
+                        ("big_count", "big_pairs", "sweep_count_rolled",
+                         "sweep_masks", "compact_mask")),
+    "hetero_giants": (("slab", 146),
+                      ("big_count", "big_pairs", "slab_count", "slab_masks",
+                       "compact_mask")),
+}
 #: Back-to-back calls per timing sample of a kernel and its plain version.
 KERNEL_BATCH = 20
+#: Published H100 SXM peaks: HBM bytes/s and float32 FLOP/s outside the
+#: tensor cores (NVIDIA's data sheet, at a 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+#: Float compares per box test.
+BOX_COMPARES = 6
 
 FAILURES = []
 
@@ -94,11 +125,12 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
-    from collision_tpu_torch.kernels import compact, slab_sweep, sweep
+    from collision_tpu_torch.kernels import bigpass, compact, slab_sweep, sweep
 
     swaps = [(slab_sweep, "slab_count"), (slab_sweep, "slab_masks"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
-             (sweep, "sweep_masks")]
+             (sweep, "sweep_masks"), (bigpass, "big_count_only"),
+             (bigpass, "big_pairs")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -139,6 +171,125 @@ def check_against_oracle(res_count, res_fill, expected, label):
     check_fill(res_fill, expected, label)
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, tests):
+    """(bound_ms, bound_by): the least time of a kernel that moves
+    ``moved`` bytes and runs ``tests`` box tests, on the published
+    peaks."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = tests * BOX_COMPARES / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
+    """Box tests a sweep kernel runs on a plan: each live a-row of each
+    chunk against the window lanes its ``rpw`` rows cover."""
+    import torch
+
+    nb = w0.numel() // (mc * noff)
+    g0 = starts[:nb, None].long() + torch.arange(mc, device=w0.device) * 64
+    alen = (starts[1:nb + 1, None].long() - g0).clamp(0, 64)
+    w = w0.reshape(nb, mc, noff).long()
+    wc = wcap.reshape(nb, mc, noff).long()
+    if rolled:
+        lanes = wc.clamp(max=rpw * 128)
+    else:
+        lanes = (torch.minimum(w + wc, (w // 128 + rpw) * 128) - w).clamp(min=0)
+    return int((alen[..., None] * lanes).sum())
+
+
+def big_tests(bigs, stream):
+    """Box tests of the big pass: 64 x 128 per (stream row, visited big
+    chunk)."""
+    from collision_tpu_torch.kernels import bigpass
+
+    c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
+    return int((n_always + c1 - c0).long().sum()) * 64 * 128
+
+
+def powerlaw_scene(n, dev):
+    """The JAX package's 1M reference scene for mixed radii: centers
+    U[0,1)^3 from SEED, radii (pareto(2.5) + 0.2) / sqrt(n), clipped at
+    0.05."""
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    coords_np = rng.random((n, 3)).astype("float32")
+    radii_np = np.clip((1 / n ** 0.5) * (rng.pareto(2.5, n) + 0.2), 0,
+                       0.05).astype("float32")
+    return (coords_np, radii_np, torch.from_numpy(coords_np).to(dev),
+            torch.from_numpy(radii_np).to(dev))
+
+
+def giants_scene(n, dev):
+    """The uniform scene with its first GIANTS spheres at GIANT_RADIUS:
+    a few hundred large bodies among small particles."""
+    import torch
+
+    coords_np, radii_np, _, _ = uniform_scene(n, dev)
+    radii_np[:GIANTS] = GIANT_RADIUS
+    return (coords_np, radii_np, torch.from_numpy(coords_np).to(dev),
+            torch.from_numpy(radii_np).to(dev))
+
+
+def hetero_route(coords, radii):
+    """The S-S engine and knobs "auto" derives for a scene, or None when
+    its probe finds the scene uniform."""
+    from collision_tpu_torch import collider
+
+    n = coords.shape[0]
+    stats = collider._route_hetero_eager(coords, radii)
+    if stats is None:
+        return None
+    return collider._hetero_route_knobs(n, collider._effective_nb(n, None),
+                                        *stats)
+
+
+def hetero_path(name, scene, dev):
+    """Drive ``auto`` on one mixed-radii scene at N spheres: the route,
+    the launches of its count and full fill, the oracle, and a truncated
+    fill against the plain path. Returns (coords, radii, launches)."""
+    import torch
+    from collision_tpu_torch import collide
+    from collision_tpu_torch.testing import kdtree_collisions, pair_array_to_set
+
+    t0 = time.perf_counter()
+    coords_np, radii_np, coords, radii = scene(N, dev)
+    want_knobs, want_kernels = HETERO_ROUTES[name]
+    knobs = hetero_route(coords, radii)
+    check(knobs == want_knobs, f"{name}: auto routes to hetero {knobs}")
+    (res_count, res_fill), run = counted(lambda: (
+        collide(coords, radii, 0), collide(coords, radii, HETERO_CAPACITY)))
+    for kernel, ran in run.items():
+        check((ran > 0) == (kernel in want_kernels),
+              f"{name}: {kernel} launched {ran}x")
+    t1 = time.perf_counter()
+    expected = kdtree_collisions(coords_np, radii_np)
+    oracle_s = time.perf_counter() - t1
+    check_count(res_count, expected, name)
+    check_fill(res_fill, expected, name)
+    cut = collide(coords, radii, CAPACITY)
+    with plain_kernels():
+        plain_cut = collide(coords, radii, CAPACITY)
+    check(bool(cut.ok) and int(cut.count) == len(expected)
+          and bool(plain_cut.ok) and int(plain_cut.count) == len(expected),
+          f"{name} capacity {CAPACITY}: true total, kernel and plain path")
+    check(torch.equal(cut.pairs, plain_cut.pairs),
+          f"{name} capacity {CAPACITY}: pairs == plain path's, bit for bit")
+    got = pair_array_to_set(cut.pairs.cpu().numpy(), CAPACITY)
+    check(len(got) == CAPACITY and got <= expected,
+          f"{name} capacity {CAPACITY}: distinct oracle pairs")
+    phase(name, n=N, knobs=knobs, pairs=len(expected),
+          count=int(res_count.count), ok=bool(res_count.ok),
+          fill_capacity=HETERO_CAPACITY, fill_total=int(res_fill.count),
+          fill_ok=bool(res_fill.ok), launches=run, oracle_seconds=oracle_s,
+          seconds=time.perf_counter() - t0)
+    return coords, radii, run
+
+
 def uniform_scene(n, dev):
     """(coords, radii) numpy float32 and on the card: n uniform spheres
     from SEED, radii U(0, 1/sqrt(n))."""
@@ -175,8 +326,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    from collision_tpu_torch import collide, columns, slabs
-    from collision_tpu_torch.kernels import _build, compact, slab_sweep, sweep
+    from collision_tpu_torch import collide, columns, hetero, slabs
+    from collision_tpu_torch.kernels import (_build, bigpass, compact,
+                                             slab_sweep, sweep)
     from collision_tpu_torch.testing import kdtree_collisions, pair_array_to_set
 
     t0 = time.perf_counter()
@@ -226,20 +378,27 @@ def main():
 
     launches = dict(slab_launches)
 
-    def record(name, source, replaces, err, fn, plain_fn):
+    def record(name, source, replaces, err, fn, plain_fn, moved, tests,
+               library_fn=None, plain_batch=KERNEL_BATCH):
         check(err == 0, f"{name}: kernel == plain (max_abs_err {err})")
+        bound_ms, bound_by = bound(moved, tests)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": time_ms(fn, batch=KERNEL_BATCH),
-            "plain_ms": time_ms(plain_fn, batch=KERNEL_BATCH)})
+            "plain_ms": time_ms(plain_fn, batch=plain_batch),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if library_fn is None
+            else time_ms(library_fn, batch=KERNEL_BATCH)})
 
+    sweep_in = nbytes(*args)
     cnt = slab_sweep.slab_count(*args)
     record("slab_count", "collision_tpu_torch/csrc/slab_sweep.cu",
            "collision_tpu/kernels/slab_sweep.py:157",
            abs(int(cnt) - int(slab_sweep.slab_count_plain(*args))),
            lambda: slab_sweep.slab_count(*args),
-           lambda: slab_sweep.slab_count_plain(*args))
+           lambda: slab_sweep.slab_count_plain(*args), sweep_in + 8,
+           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 2, 1, True))
     masks = slab_sweep.slab_masks(*args)
     plain_masks = slab_sweep.slab_masks_plain(*args)
     check(torch.equal(masks, plain_masks), "slab_masks: torch.equal")
@@ -247,7 +406,9 @@ def main():
            "collision_tpu/kernels/slab_sweep.py:347",
            max_abs_err(masks, plain_masks),
            lambda: slab_sweep.slab_masks(*args),
-           lambda: slab_sweep.slab_masks_plain(*args))
+           lambda: slab_sweep.slab_masks_plain(*args),
+           sweep_in + nbytes(masks),
+           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 2, 1, True))
     small = slabs.residual_row_mask(plan)[0].reshape(-1)
     dense = torch.rand(small.numel(), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(SEED)) < 0.03
@@ -262,7 +423,9 @@ def main():
     record("compact_mask", "collision_tpu_torch/csrc/compact.cu",
            "collision_tpu/kernels/compact.py:48", max(errs),
            lambda: compact.compact_mask(small, slabs.RESIDUAL_PAIRS),
-           lambda: compact.compact_mask_plain(small, slabs.RESIDUAL_PAIRS))
+           lambda: compact.compact_mask_plain(small, slabs.RESIDUAL_PAIRS),
+           nbytes(small) + 4 * slabs.RESIDUAL_PAIRS + 4, 0,
+           library_fn=lambda: torch.nonzero(small))
 
     # --- step times, kernel path and plain path ---
     steps = {}
@@ -352,6 +515,7 @@ def main():
         AUTO_SCENES[0][0]))
     phase("column_kernel_plan", n=AUTO_SCENES[0][0], gxy=plan.gxy, mc=plan.mc,
           rows_needed=int(plan.rows_needed), rows_rolled=int(plan.rows_rolled))
+    col_in = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap)
     for rolled, name, line in ((True, "sweep_count_rolled", 226),
                                (False, "sweep_count_aligned", 78)):
         record(name, "collision_tpu_torch/csrc/sweep.cu",
@@ -359,14 +523,17 @@ def main():
                abs(int(sweep.sweep_count(plan, 2, rolled))
                    - int(sweep.sweep_count_plain(plan, 2, rolled))),
                lambda: sweep.sweep_count(plan, 2, rolled),
-               lambda: sweep.sweep_count_plain(plan, 2, rolled))
+               lambda: sweep.sweep_count_plain(plan, 2, rolled), col_in + 8,
+               window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2,
+                            rolled))
     masks = sweep.sweep_masks(plan, 2)
     plain_masks = sweep.sweep_masks_plain(plan, 2)
     check(torch.equal(masks, plain_masks), "sweep_masks: torch.equal")
     record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
            "collision_tpu/kernels/sweep.py:382", max_abs_err(masks, plain_masks),
            lambda: sweep.sweep_masks(plan, 2),
-           lambda: sweep.sweep_masks_plain(plan, 2))
+           lambda: sweep.sweep_masks_plain(plan, 2), col_in + nbytes(masks),
+           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2, False))
 
     # --- column step times, kernel path and plain path ---
     for n_s, (c, r) in ((AUTO_SCENES[0][0], auto_scenes[AUTO_SCENES[0][0]]),
@@ -379,6 +546,64 @@ def main():
                 col_steps[label + "_plain_ms"] = time_ms(
                     lambda: collide(c, r, capacity, method="column"))
         phase("column_steps", n=n_s, **col_steps)
+
+    # --- auto on the two mixed-radii scenes: the hetero engine ---
+    hetero_scenes = {}
+    big_launches = {"big_count": 0, "big_pairs": 0}
+    for name, scene in (("hetero_powerlaw", powerlaw_scene),
+                        ("hetero_giants", giants_scene)):
+        c, r, run = hetero_path(name, scene, dev)
+        hetero_scenes[name] = (c, r)
+        for kernel in big_launches:
+            big_launches[kernel] += run[kernel]
+    launches.update(big_launches)
+
+    # --- the big kernels against their plain versions at the power-law
+    # route's parked column plan ---
+    t0 = time.perf_counter()
+    c, r = hetero_scenes["hetero_powerlaw"]
+    _, _, parked, bigs = hetero._split(c, r, None)
+    knobs = HETERO_ROUTES["hetero_powerlaw"][0]
+    hplan = columns.plan_columns(c, parked, *knobs[1:4])
+    stream = hplan.stream
+    tests = big_tests(bigs, stream)
+    big_in = nbytes(*bigs, stream)
+    tot, ok = bigpass.big_count_only(bigs, stream)
+    ptot, pok = bigpass.big_count_only_plain(bigs, stream)
+    check(bool(ok) == bool(pok), "big_count: no_overflow == plain")
+    record("big_count", "collision_tpu_torch/csrc/bigpass.cu",
+           "collision_tpu/kernels/bigpass.py:281", abs(int(tot) - int(ptot)),
+           lambda: bigpass.big_count_only(bigs, stream),
+           lambda: bigpass.big_count_only_plain(bigs, stream), big_in + 8,
+           tests, plain_batch=2)
+    got = bigpass.big_pairs(bigs, stream, HETERO_CAPACITY)
+    want = bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY)
+    check(int(got[1].ne(0xFFFFFFFF).sum()) == int(got[2]) > 0,
+          f"big_pairs: {int(got[2])} pairs, every one written")
+    record("big_pairs", "collision_tpu_torch/csrc/bigpass.cu",
+           "collision_tpu/kernels/bigpass.py:87",
+           max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+               abs(int(got[2]) - int(want[2]))),
+           lambda: bigpass.big_pairs(bigs, stream, HETERO_CAPACITY),
+           lambda: bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY),
+           big_in + 8 * HETERO_CAPACITY + 8, tests, plain_batch=2)
+    phase("big_kernel_plan", n=N, knobs=knobs, stream_rows=stream.shape[0],
+          big_chunks=bigs[0].shape[0], box_tests=tests,
+          big_small_pairs=int(tot), seconds=time.perf_counter() - t0)
+
+    # --- hetero step times, kernel path and plain path ---
+    for name, (c, r) in hetero_scenes.items():
+        t0 = time.perf_counter()
+        het_steps = {}
+        for label, capacity in (("count_step", 0),
+                                ("fill_step", HETERO_CAPACITY)):
+            het_steps[label + "_ms"] = time_ms(lambda: collide(c, r, capacity))
+            with plain_kernels():
+                het_steps[label + "_plain_ms"] = time_ms(
+                    lambda: collide(c, r, capacity), reps=5)
+        phase("hetero_steps", scene=name, n=N,
+              fill_capacity=HETERO_CAPACITY, **het_steps,
+              seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

@@ -20,44 +20,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_scan.cuh"
+
 namespace {
+
+using scan::block_exclusive_scan;
 
 constexpr int THREADS = 256;
 constexpr int ITEMS = 16;
 constexpr int TILE = THREADS * ITEMS;
 constexpr int SCAN_THREADS = 1024;
-
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
-
-// Exclusive scan of one int per thread over the block (blockDim.x a
-// multiple of 32); *total receives the block sum. Every thread calls it.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[33];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int inc = warp_inclusive_scan(v);
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < nwarps ? warp_sums[lane] : 0;
-    const int winc = warp_inclusive_scan(w);
-    warp_sums[lane] = winc - w;
-    if (lane == 31) warp_sums[32] = winc;
-  }
-  __syncthreads();
-  const int out = warp_sums[warp] + inc - v;
-  *total = warp_sums[32];
-  __syncthreads();   // warp_sums is reused by the next call
-  return out;
-}
 
 __device__ __forceinline__ int thread_count(const uint8_t* __restrict__ mask,
                                             long long n, long long p0) {

@@ -1,12 +1,14 @@
 """Pair fill over the sweep engines' packed masks (collision_tpu/fill.py).
 
-The column fill (``mask_fill``) tests every chunk against ``rpw`` aligned
-rows of its 5 windows. The slab fill (``slab_mask_fill``) tests every
-chunk against one rolled row of its 2 windows, and the rare window
-remainders past 128 lanes go to ``slabs.residual_pairs``, appended after
-the mask pairs. A sparse two-level emission decodes the mask words into
-pairs in (mask row, lane, bit) order. Ids are uint32 values held in
-int64; unused slots hold 0xFFFFFFFF.
+The column fill (``mask_fill``, ``column_fill_from_plan``) tests every
+chunk against ``rpw`` aligned rows of its 5 windows. The slab fill
+(``slab_mask_fill``, ``slab_fill_from_plan``) tests every chunk against
+one rolled row of its 2 windows (two rows in the hetero engine's slab
+pass), and the rare window remainders past them go to
+``slabs.residual_pairs``, appended after the mask pairs. A sparse
+two-level emission decodes the mask words into pairs in (mask row, lane,
+bit) order. Ids are uint32 values held in int64; unused slots hold
+0xFFFFFFFF.
 
 Emission is plain PyTorch, as it is plain XLA in the JAX package. Only
 the sparse emission is ported: capacities above ``BIG_FILL_THRESHOLD``
@@ -148,17 +150,23 @@ def _sorted_ids(plan):
 
 def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=2):
     """Column-engine pair fill: (ida[capacity], idb[capacity], total,
-    ok).
+    ok), as :func:`column_fill_from_plan` over the column plan."""
+    plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
+    return column_fill_from_plan(plan, capacity, rpw)
 
-    The column plan, the masks kernel at ``rpw`` aligned rows, and the
-    sparse emission. ``total`` is the true int64 pair count even past
-    ``capacity`` (at most ``BIG_FILL_THRESHOLD``; ``collide`` checks
-    it). ``ok`` is False when the plan's capacities or ``rpw`` were too
-    small (``plan.rows_needed > rpw``), when the total reached the JAX
+
+def column_fill_from_plan(plan, capacity, rpw):
+    """(ida[capacity], idb[capacity], total, ok) from a column plan: the
+    masks kernel at ``rpw`` aligned rows and the sparse emission. The
+    uniform column fill and the hetero engine's column S-S pass share it.
+
+    ``total`` is the true int64 pair count even past ``capacity`` (at
+    most ``BIG_FILL_THRESHOLD``; ``collide`` checks it). ``ok`` is False
+    when the plan's capacities or ``rpw`` were too small
+    (``plan.rows_needed > rpw``), when the total reached the JAX
     package's int32 guard, or when the emission's row cut could have
     dropped a pair.
     """
-    plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
     W, rp, total = _mask_words(sweep.sweep_masks(plan, rpw))
     ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
     ida, idb, trunc_safe = _mask_fill_emit(
@@ -168,24 +176,33 @@ def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=2):
     return ida, idb, total, ok & trunc_safe
 
 
-def slab_fill_from_plan(plan, capacity):
+def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     """(ida[capacity], idb[capacity], total, ok) from a slab plan: the
-    mask pairs, then the residual pairs, truncated at ``capacity``
-    (at most ``BIG_FILL_THRESHOLD``; ``collide`` checks it).
+    mask pairs of the masks kernel at ``dual_base`` rolled rows (windows
+    clamped to dual_base*128 lanes), then the residual pairs of the lanes
+    past them, truncated at ``capacity`` (at most ``BIG_FILL_THRESHOLD``;
+    ``collide`` checks it). The uniform slab fill runs one row, the
+    hetero engine's slab S-S pass two.
 
     ``total`` is the true int64 pair count even past ``capacity``. ``ok``
     is False when the plan's capacities, the residual job or pair
     capacity or the JAX package's int32 guard were exceeded, or when the
-    emission's row cut could have dropped a pair.
+    emission's row cut could have dropped a pair. ``split_ok`` returns
+    (ida, idb, total, gx_ok, other_ok) instead: gx_ok is what a finer
+    slab grid can fix (plan and residual capacities), other_ok the rest.
     """
-    W, rp, mask_total = _mask_words(slab_sweep.slab_sweep_masks(plan))
-    rida, ridb, rcount, r_ok = residual_pairs(plan)
+    sweep_plan = plan._replace(
+        wcap=torch.clamp_max(plan.wcap, dual_base * LANE))
+    W, rp, mask_total = _mask_words(
+        slab_sweep.slab_sweep_masks(sweep_plan, dual_base))
+    rida, ridb, rcount, r_ok = residual_pairs(plan, base=dual_base)
     total = mask_total + rcount
-    ok = plan.ok & r_ok & (mask_total < sweep.INT32_GUARD)
+    gx_ok = plan.ok & r_ok
+    no_wrap = mask_total < sweep.INT32_GUARD
     ida, idb, trunc_safe = _mask_fill_emit(
         W, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
         _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
-        rpw=1, rolled=True)
+        rpw=dual_base, rolled=True)
 
     # Append the residual pairs after the mask pairs.
     q = torch.arange(capacity, device=W.device)
@@ -195,7 +212,9 @@ def slab_fill_from_plan(plan, capacity):
     live = q < torch.clamp_max(total, capacity)
     ida = torch.where(live, torch.where(in_m, ida, rida[qr]), NO_PAIR)
     idb = torch.where(live, torch.where(in_m, idb, ridb[qr]), NO_PAIR)
-    return ida, idb, total, ok & trunc_safe
+    if split_ok:
+        return ida, idb, total, gx_ok, no_wrap & trunc_safe
+    return ida, idb, total, gx_ok & no_wrap & trunc_safe
 
 
 def slab_mask_fill(coords, radii, capacity, gx, col_capacity, slab_rows):

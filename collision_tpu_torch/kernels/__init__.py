@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the slab path, each beside its plain
+"""Hand-written CUDA kernels of the port's paths, each beside its plain
 PyTorch version (sources in ``../csrc``, built by ``_build``)."""

@@ -29,15 +29,15 @@ _LIB = _BUILD_DIR / "libcollision_kernels.so"
 #: path went through.
 LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_count_rolled": 0, "sweep_count_aligned": 0,
-            "sweep_masks": 0}
+            "sweep_masks": 0, "big_count": 0, "big_pairs": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # stream, starts, w0, wcap, gx, mc, total, cuda stream
-    "slab_count_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
-    # stream, starts, w0, wcap, gx, mc, kg, ng, out, cuda stream
-    "slab_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # stream, starts, w0, wcap, gx, mc, rpw, total, cuda stream
+    "slab_count_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # stream, starts, w0, wcap, gx, mc, rpw, kg, ng, out, cuda stream
+    "slab_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # stream, starts, w0, wcap, ncols, mc, rpw, rolled, total, cuda stream
     "sweep_count_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # stream, starts, w0, wcap, ncols, mc, rpw, kg, ng, out, cuda stream
@@ -46,6 +46,11 @@ _ARGTYPES = {
     "compact_launch": [_P, ctypes.c_longlong, _I, _P, _P, _P, _I, _P],
     # mask elements per compaction block
     "compact_tile": [],
+    # bigs, c0, c1, n_always, stream, rows, counts, total, cuda stream
+    "big_count_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
+    # bigs, c0, c1, n_always, stream, rows, bases, capacity, ida, idb,
+    # cuda stream
+    "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -55,22 +60,38 @@ def reset_launches():
 
 
 def build():
-    """Compile ``csrc/*.cu`` for sm_90a; returns ptxas' resource report."""
+    """Compile ``csrc/*.cu`` for sm_90a, one ``nvcc`` per source, all at
+    once, and link them; returns ptxas' resource report."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: set CUDA_HOME")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    objs, procs = [], []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = _BUILD_DIR / (src.stem + ".o")
+        objs.append(str(obj))
+        procs.append(subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
+             "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    report, failed = [], []
+    for proc in procs:
+        out, err = proc.communicate()
+        report.append(err)
+        if proc.returncode:
+            failed.append(out + err)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = _LIB.with_suffix(".so.tmp")
-    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), *map(str, sorted(_CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                         capture_output=True, text=True, check=False)
     if res.returncode:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
     tmp.replace(_LIB)
-    return res.stderr
+    return "".join(report)
 
 
 @functools.cache

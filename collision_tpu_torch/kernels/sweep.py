@@ -17,18 +17,28 @@ On a CUDA tensor each wrapper launches its kernel from ``csrc/sweep.cu``;
 on a CPU tensor it runs the plain PyTorch version beside it. ``rpw`` is
 a runtime loop bound in the kernels, so the JAX package's TPU-only
 knobs are not ported: ``ROWS_STATIC_MAX`` and ``_ROW_UNIT_BUDGET`` (the
-Mosaic scoped-VMEM budget for unrolled rows), ``UNROLL`` (the TPU's
-chunk unrolling), and ``RPW_LADDER``, which serves only the retry
-ladder's recompiles.
+Mosaic scoped-VMEM budget for unrolled rows) and ``UNROLL`` (the TPU's
+chunk unrolling). ``RPW_LADDER`` is kept as routing data: the hetero
+route (``collider._hetero_route_knobs``) picks its rows-per-window rung
+from it.
+
+``sweep_count_dual`` is the hetero engine's column S-S count: the rolled
+kernel at ``base`` rows plus the residual jobs (``slabs``) for the window
+lanes past them.
 """
 
+import numpy as np
 import torch
 
 from ..columns import CHUNK, LANE
+from ..slabs import RESIDUAL_JOBS, _residual_mask_tables
 from . import _build
 
 #: Half-stencil offsets per chunk (``columns.COLUMN_OFFSETS``).
 NOFF = 5
+
+#: Rows-per-window rungs of the JAX package's retry ladder.
+RPW_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 
 #: The JAX package keeps pair totals in int32 and flags them (ok=False)
 #: from 2^31 - 2^26 up; the port's totals are exact int64, held to the
@@ -219,3 +229,40 @@ def sweep_masks(plan, rpw=2):
         int(rpw), kg, ng, out.data_ptr())
     _build.LAUNCHES["sweep_masks"] += 1
     return out
+
+
+def column_residual_count(plan, j_cap=None, base=1):
+    """(int64 count, ok) of the column-plan window lanes beyond the first
+    ``base``*128: the 5-offset form of ``slabs.residual_count``, over the
+    same residual jobs. ``ok`` is False when more than ``j_cap`` jobs
+    (default ``slabs.RESIDUAL_JOBS``) were needed."""
+    m, _, _, ok = _residual_mask_tables(
+        plan.stream, plan.starts, plan.w0.reshape(-1), plan.wcap.reshape(-1),
+        plan.mc, NOFF, RESIDUAL_JOBS if j_cap is None else j_cap, base)
+    return m.sum(), ok
+
+
+def default_column_j_cap(plan, base=1):
+    """Residual-job capacity of a column dual count, from the plan's
+    shapes: the slab default from two rows up; at one row, 1/16 of the
+    window table in 256-job steps (windows of parked power-law scenes
+    average ~110 lanes, so the tail past 128 lanes is fat)."""
+    if base >= 2:
+        return RESIDUAL_JOBS
+    T = int(np.prod(plan.w0.shape))
+    return max(RESIDUAL_JOBS, -(-T // (16 * 256)) * 256)
+
+
+def sweep_count_dual(plan, j_cap=None, base=1):
+    """(int64 count, ok) by dual dispatch over a column plan: the rolled
+    count kernel at ``base`` rows with windows clamped to base*128 lanes,
+    plus the residual jobs for the lanes past them. ``ok`` folds the
+    plan's capacities, the residual-job bound (``j_cap``, default
+    :func:`default_column_j_cap`) and the int32 guard; the count is exact
+    iff it is True."""
+    if j_cap is None:
+        j_cap = default_column_j_cap(plan, base)
+    sweep_plan = plan._replace(wcap=torch.clamp_max(plan.wcap, base * LANE))
+    cnt, no_wrap = sweep_count_guarded(sweep_plan, rpw=base, rolled=True)
+    rcnt, r_ok = column_residual_count(plan, j_cap, base)
+    return cnt + rcnt, plan.ok & r_ok & no_wrap

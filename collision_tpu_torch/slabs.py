@@ -221,26 +221,29 @@ def plan_from_numpy(d, device):
         slab_rows=int(d["slab_rows"]))
 
 
-def _residual_mask_tables(plan, j_cap):
+def _residual_mask_tables(stream, starts, w0f, wcf, mc, noff, j_cap,
+                          base=1):
     """The [J, 256, 256] overlap mask of every window remainder past the
-    first 128 lanes of a plan, plus the per-job id channels.
+    first ``base``*128 lanes, plus the per-job id channels.
 
-    Each (chunk, offset) window wider than 128 lanes contributes one job
+    Shared by the slab plan (``noff=2``) and the column plan (``noff=5``):
+    the flat window tables ``w0f``/``wcf`` are laid out as (bucket * mc +
+    k) * noff + off, with ``starts`` indexed by bucket. ``base`` is the
+    number of 128-lane rows the paired rolled sweep already covers. Each
+    (chunk, offset) window wider than base*128 lanes contributes one job
     per 128-lane segment of its remainder, the job list is compacted to
-    ``j_cap`` slots, and each job's lanes [w0 + 128(1+seg),
-    w0 + min(wcap, 128(2+seg))) are tested against its whole chunk with
-    one dense compare. ``ok`` is False when the job list overflowed.
+    ``j_cap`` slots, and each job's lanes [w0 + 128(base+seg),
+    min(w0 + wcap, w0 + 128(base+1+seg))) are tested against its whole
+    chunk with one dense compare. ``ok`` is False when the job list
+    overflowed.
 
     Returns (m bool[J, 256, 256], a_idf, b_idf f32[J, 256] — the id
     channel of the fetched a/b lanes — and ok).
     """
-    stream, starts, mc = plan.stream, plan.starts, plan.mc
-    w0f, wcf = plan.w0.reshape(-1), plan.wcap.reshape(-1)
-    noff = len(SLAB_OFFSETS)     # flat tables: (slab * mc + k) * noff + off
     dev = stream.device
     T = w0f.shape[0]
 
-    res = torch.clamp_min(wcf - LANE, 0)
+    res = torch.clamp_min(wcf - base * LANE, 0)
     nseg = (res + LANE - 1) // LANE               # 128-lane residual segments
     ic = inclusive_scan(nseg)
     nj = ic[-1]
@@ -253,14 +256,14 @@ def _residual_mask_tables(plan, j_cap):
     # ordinals [ic[e] - nseg[e], ic[e]).
     seg = torch.clamp_min(ordj - (ic[sel] - nseg[sel]), 0).long()
 
-    ck = sel // noff                # (slab, chunk); sel % noff = offset
+    ck = sel // noff                # (bucket, chunk); sel % noff = offset
     x = ck // mc
     k = ck % mc
     g0 = starts[x].long() + k * CHUNK
     aend = starts[x + 1].long()
-    # The job's lanes as [w0j + 128, w0j + wcj), w0j pre-shifted by the
-    # segment.
-    shift = seg * LANE
+    # The job's lanes as [w0j + 128, w0j + wcj), w0j pre-shifted past the
+    # base rows and the segment.
+    shift = (base - 1 + seg) * LANE
     w0j = w0f[sel].long() + shift
     wcj = torch.clamp_max(
         torch.where(live, wcf[sel].long(), 0) - shift, 2 * LANE)
@@ -282,7 +285,7 @@ def _residual_mask_tables(plan, j_cap):
         g0 + CHUNK, aend)[:, None])
     b_ok = (jpos >= (w0j + LANE)[:, None]) & (jpos < (w0j + wcj)[:, None])
     # j > i holds by construction: self-offset jobs start past the chunk,
-    # cross jobs live in a later slab.
+    # cross jobs live in a later bucket.
     m = a_ok[:, :, None] & b_ok[:, None, :]
     for lo_c, hi_c in ((0, 3), (1, 4), (2, 5)):
         m &= comp(a6, hi_c)[:, :, None] > comp(b6, lo_c)[:, None, :]
@@ -290,19 +293,26 @@ def _residual_mask_tables(plan, j_cap):
     return m, comp(a6, 6), comp(b6, 6), ok
 
 
-def residual_count(plan, j_cap=RESIDUAL_JOBS):
-    """(int64 count, ok) of the window lanes beyond the first 128: the
-    part of each window that the one-row sweep kernels clip."""
-    m, _, _, ok = _residual_mask_tables(plan, j_cap)
+def _residual_mask(plan, j_cap, base):
+    """:func:`_residual_mask_tables` of a slab plan."""
+    return _residual_mask_tables(
+        plan.stream, plan.starts, plan.w0.reshape(-1), plan.wcap.reshape(-1),
+        plan.mc, len(SLAB_OFFSETS), j_cap, base)
+
+
+def residual_count(plan, j_cap=RESIDUAL_JOBS, base=1):
+    """(int64 count, ok) of the window lanes beyond the first ``base``*128:
+    the part of each window that the ``base``-row sweep kernels clip."""
+    m, _, _, ok = _residual_mask(plan, j_cap, base)
     return m.sum(), ok
 
 
-def residual_row_mask(plan, p_cap=RESIDUAL_PAIRS):
+def residual_row_mask(plan, p_cap=RESIDUAL_PAIRS, base=1):
     """The residual mask reduced to its hit rows: (small bool[R_cap, 256]
     — the ascending a-rows holding a pair, at most ``p_cap`` —, rowsel,
     a_idf, b_idf, count, ok). Hits are rare by construction, so only
     the hit rows reach the compaction kernel."""
-    m, a_idf, b_idf, ok = _residual_mask_tables(plan, RESIDUAL_JOBS)
+    m, a_idf, b_idf, ok = _residual_mask(plan, RESIDUAL_JOBS, base)
     L2 = 2 * LANE
     mr = m.reshape(-1, L2)                          # [J*256, 256]
     Rm = mr.shape[0]
@@ -318,14 +328,16 @@ def residual_row_mask(plan, p_cap=RESIDUAL_PAIRS):
     return small, rowsel, a_idf, b_idf, count, ok
 
 
-def residual_pairs(plan, p_cap=RESIDUAL_PAIRS):
+def residual_pairs(plan, p_cap=RESIDUAL_PAIRS, base=1):
     """(ida[p_cap], idb[p_cap], count, ok): original-id pairs of the
-    clipped window remainders, in ascending (job, a-row, lane) order —
-    the fill-side counterpart of :func:`residual_count`. Ids are uint32
+    clipped window remainders past ``base``*128 lanes, in ascending (job,
+    a-row, lane) order — the fill-side counterpart of
+    :func:`residual_count`. Ids are uint32
     values in int64; dead slots hold 0xFFFFFFFF. ``ok`` is False when
     the job list or ``p_cap`` overflowed (the result is then a correct
     prefix)."""
-    small, rowsel, a_idf, b_idf, count, ok = residual_row_mask(plan, p_cap)
+    small, rowsel, a_idf, b_idf, count, ok = residual_row_mask(
+        plan, p_cap, base)
     L2 = 2 * LANE
     R_cap = small.shape[0]
     idx, _ = compact.compact_mask(small.reshape(-1), max(p_cap, 8))

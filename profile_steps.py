@@ -1,18 +1,22 @@
 """Device profile of collision_tpu_torch's count and fill steps on one
-NVIDIA GPU, for the slab and the column engine.
+NVIDIA GPU, for the slab, the column and the hetero engine.
 
     python3 profile_steps.py [--out DIR]
 
-The scene is chip_smoke.py's: 1M uniform spheres from seed 4, radii
-U(0, 1/sqrt(n)), each engine's default config. Prints one JSON line per
-reading:
+The scenes are chip_smoke.py's, 1M spheres from seed 4: uniform, radii
+U(0, 1/sqrt(n)), each engine's default config; and the two mixed-radii
+scenes that ``auto`` sends to the hetero engine (power-law radii, whose
+S-S pass runs on the column engine, and 512 giants among uniform radii,
+whose S-S pass runs on the slab engine), count and a fill with room for
+every pair. Prints one JSON line per reading:
 
 - ``stage``: each stage of a step (plan, sweep kernel, residual jobs,
   fill), median of 10 samples after warm-up: CUDA-event ms around one
   call, and host enqueue ms (the call returning, before the sync).
 - ``step``: unprofiled median ms of the whole count and fill steps of
   each engine (``count``, ``fill``: slab; ``column_count``,
-  ``column_fill``: column).
+  ``column_fill``: column; ``hetero_powerlaw_*``, ``hetero_giants_*``:
+  ``auto`` on the mixed-radii scenes).
 - ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
   Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
   read back. Device ops per step (kernel, memset and memcpy events),
@@ -48,8 +52,9 @@ STEPS = 5
 
 #: The hand-written kernels, by their demangled names in the trace.
 KERNELS = re.compile(
-    r"::(slab_count_kernel|slab_masks_kernel|column_count_kernel<(?:true|false)>|"
-    r"column_masks_kernel|count_kernel|scan_kernel|write_kernel)\(")
+    r"::(slab_count_kernel<[01]>|slab_masks_kernel<[01]>|"
+    r"column_count_kernel<(?:true|false)>|column_masks_kernel|count_kernel|"
+    r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -158,6 +163,7 @@ def main():
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
+    from chip_smoke import HETERO_CAPACITY, giants_scene, powerlaw_scene
     from collision_tpu_torch import collide, columns, fill, slabs
     from collision_tpu_torch.kernels import slab_sweep, sweep
 
@@ -188,16 +194,28 @@ def main():
         ev, host = timed(fn)
         emit("stage", name=name, event_ms=ev, host_enqueue_ms=host)
 
+    _, _, pl_coords, pl_radii = powerlaw_scene(N, dev)
+    _, _, gi_coords, gi_radii = giants_scene(N, dev)
     steps = {
         "count": (lambda: collide(coords, radii, 0, method="slab"),
-                  "slab_count_kernel"),
+                  "slab_count_kernel<1>"),
         "fill": (lambda: collide(coords, radii, CAPACITY, method="slab"),
-                 "slab_masks_kernel"),
+                 "slab_masks_kernel<1>"),
         "column_count": (lambda: collide(coords, radii, 0, method="column"),
                          "column_count_kernel<true>"),
         "column_fill": (lambda: collide(coords, radii, CAPACITY,
                                         method="column"),
-                        "column_masks_kernel")}
+                        "column_masks_kernel"),
+        "hetero_powerlaw_count": (lambda: collide(pl_coords, pl_radii, 0),
+                                  "big_count_kernel"),
+        "hetero_powerlaw_fill": (lambda: collide(pl_coords, pl_radii,
+                                                 HETERO_CAPACITY),
+                                 "big_emit_kernel"),
+        "hetero_giants_count": (lambda: collide(gi_coords, gi_radii, 0),
+                                "big_count_kernel"),
+        "hetero_giants_fill": (lambda: collide(gi_coords, gi_radii,
+                                               HETERO_CAPACITY),
+                               "big_emit_kernel")}
     good = True
     for label, (fn, sweep_kernel) in steps.items():
         ev, host = timed(fn)

@@ -15,7 +15,8 @@ from collision_tpu import collider as jcollider
 from collision_tpu_torch import collide, collider
 from collision_tpu_torch.fill import BIG_FILL_THRESHOLD
 from collision_tpu_torch.hetero import default_nb
-from collision_tpu_torch.testing import brute_force_collisions, pair_array_to_set
+from collision_tpu_torch.testing import (brute_force_collisions, kdtree_collisions,
+                                        pair_array_to_set)
 
 
 def _scene(n, r_max, seed):
@@ -79,7 +80,7 @@ def test_collide_single_sphere():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"method": "hetero"},
+    {"method": "bvh"},
     {"dtype": torch.float64},
     {"capacity": BIG_FILL_THRESHOLD + 1},
     {"method": "grid"},
@@ -159,14 +160,36 @@ def test_hetero_probe_matches_jax(kind, hetero):
         np.testing.assert_allclose(route[:2], jroute[:2], rtol=1e-5)
 
 
-def test_auto_refuses_heterogeneous_scenes():
-    # JAX would run its hetero engine here; the uniform engines' answer
-    # would be ok=False garbage, so the port raises instead.
+def test_auto_runs_hetero_on_heterogeneous_scenes():
+    # Below HETERO_SLAB_MIN "auto" keeps the caller's column knobs: the
+    # default two rows per window are too few for this scene's parked
+    # windows (ok False, never a silent answer), four are enough.
     coords, radii = _probe_scene("power_law")
-    for capacity in (0, 64):
-        with pytest.raises(NotImplementedError, match="hetero"):
-            collide(torch.from_numpy(coords), torch.from_numpy(radii),
-                    capacity)
+    expected = kdtree_collisions(coords, radii)
+    args = (torch.from_numpy(coords), torch.from_numpy(radii))
+    assert not bool(collide(*args, 0).ok)
+    count = collide(*args, 0, rpw=4)
+    assert bool(count.ok) and int(count.count) == len(expected)
+    fill = collide(*args, len(expected) + 8, rpw=4)
+    assert bool(fill.ok) and pair_array_to_set(fill.pairs, fill.count) == expected
+
+
+@pytest.mark.parametrize("kind,seed", [("power_law", 0), ("giant", 1),
+                                       ("uniform", 2), ("zero", 3)])
+def test_kdtree_oracle_matches_brute_force(kind, seed):
+    rng = np.random.RandomState(seed)
+    coords = rng.random((2000, 3)).astype("float32")
+    if kind == "power_law":
+        radii = (0.004 * (1 + rng.pareto(1.2, 2000))).clip(0, 0.35)
+    elif kind == "giant":
+        radii = rng.uniform(0, 0.02, 2000)
+        radii[5] = 0.6
+    elif kind == "uniform":
+        radii = rng.uniform(0, 1 / np.sqrt(2000), 2000)
+    else:
+        radii = np.zeros(2000)
+    radii = radii.astype("float32")
+    assert kdtree_collisions(coords, radii) == brute_force_collisions(coords, radii)
 
 
 @pytest.mark.parametrize("capacity,threshold", [

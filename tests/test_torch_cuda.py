@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from collision_tpu_torch import collide, columns, slabs
-from collision_tpu_torch.kernels import _build, compact, slab_sweep, sweep
+from collision_tpu_torch import collide, columns, hetero, slabs
+from collision_tpu_torch.kernels import _build, bigpass, compact, slab_sweep, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +125,64 @@ def test_column_collide_on_card_matches_cpu(cuda, scene):
             assert int(got.count) == int(want.count)
             if capacity:
                 assert torch.equal(got.pairs.cpu(), want.pairs)
+
+
+def _power_law(n=1500, seed=0):
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype("float32")
+    radii = (0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.35).astype("float32")
+    return torch.from_numpy(coords), torch.from_numpy(radii)
+
+
+@pytest.mark.parametrize("engine", ["column", "slab"])
+def test_big_kernels_match_plain(cuda, engine):
+    coords, radii = _power_law()
+    nb, bidx, parked, bigs = hetero._split(coords.to(cuda), radii.to(cuda),
+                                           128)
+    n = coords.shape[0]
+    if engine == "column":
+        plan = columns.plan_columns(coords.to(cuda), parked,
+                                    *columns.default_column_config(n))
+    else:
+        plan = slabs.plan_slabs(coords.to(cuda), parked,
+                                *slabs.default_slab_config(n))
+    before = dict(_build.LAUNCHES)
+    tot, ok = bigpass.big_count_only(bigs, plan.stream)
+    ptot, pok = bigpass.big_count_only_plain(bigs, plan.stream)
+    assert int(tot) == int(ptot) > 0 and bool(ok) == bool(pok)
+    for capacity in (int(tot) + 100, int(tot) // 2 + 1, 1):
+        got = bigpass.big_pairs(bigs, plan.stream, capacity)
+        want = bigpass.big_pairs_plain(bigs, plan.stream, capacity)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert _build.LAUNCHES["big_count"] == before["big_count"] + 1
+    assert _build.LAUNCHES["big_pairs"] == before["big_pairs"] + 3
+
+
+def test_slab_kernels_at_two_rows_match_plain(cuda):
+    coords, radii = _scene(900, 0.12, 17)
+    plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda),
+                            *slabs.default_slab_config(900, gx=1))
+    args = (plan.stream, plan.starts, plan.w0, plan.wcap)
+    assert int(slab_sweep.slab_count(*args, rpw=2)) \
+        == int(slab_sweep.slab_count_plain(*args, rpw=2))
+    assert torch.equal(slab_sweep.slab_masks(*args, rpw=2),
+                       slab_sweep.slab_masks_plain(*args, rpw=2))
+
+
+@pytest.mark.parametrize("engine,rpw", [("column", 2), ("slab", 1)])
+def test_hetero_on_card_matches_cpu(cuda, engine, rpw):
+    coords, radii = _power_law()
+    for capacity in (0, 4096, 1000):
+        want = hetero.hetero_collide(coords, radii, capacity, nb=128,
+                                     rpw=rpw, engine=engine)
+        got = hetero.hetero_collide(coords.to(cuda), radii.to(cuda),
+                                    capacity, nb=128, rpw=rpw, engine=engine)
+        assert bool(got[2]) == bool(want[2]) and bool(got[2])
+        assert int(got[1]) == int(want[1])
+        if capacity:
+            assert torch.equal(got[0].cpu(), want[0])
+    res = collide(coords.to(cuda), radii.to(cuda), 4096, method="hetero")
+    ref = collide(coords, radii, 4096, method="hetero")
+    assert bool(res.ok) == bool(ref.ok)
+    assert torch.equal(res.pairs.cpu(), ref.pairs)
