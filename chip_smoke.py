@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from collision_tpu_torch/csrc and drives the
-port's three engines through ``collide``, on uniform spheres from seed
-4, radii U(0, 1/sqrt(n)), as in bench.py, and on two mixed-radii scenes:
+port's three engines through ``collide``, and the reference's API
+through ``Collider`` and ``collide_exact``, on uniform spheres from seed
+4, radii U(0, 1/sqrt(n)), as in bench.py, on two mixed-radii scenes and
+on the reference's dense scene:
 
 1. the slab engine at 1M spheres, a count-only step and a 16384-capacity
    fill, checked against an independent k-d tree oracle, against the
@@ -22,17 +24,32 @@ port's three engines through ``collide``, on uniform spheres from seed
    and the uniform scene with 512 giants of radius 0.02, whose S-S pass
    runs on the slab engine; each a count and a fill with room for every
    pair, checked against a radius-aware k-d tree oracle, and a truncated
-   fill against the plain path.
+   fill against the plain path;
+5. the emission above 2^21 pairs (``big_capacity``): the slab, power-law
+   and giants fills again at capacity 2^22, where the pair-emission kernel
+   runs on the rolled and the aligned mask layouts, bit-identical to their
+   sparse-path prefixes;
+6. the reference's own dense scene through its public API
+   (``dense_fill``): ``Collider(307200).get_collisions(coords, radii,
+   110_000_000)`` on 307200 spheres of radius U(0, 0.06), whose first
+   attempt comes back ok=False and whose retry must take the column
+   route at exact knobs and return all 107,651,273 pairs: checked against
+   the independent count-only call, for strict overlap, self pairs and
+   repeats on the card, and bit for bit against the plain path;
+7. ``collide_exact`` at 65536 spheres of the same radii and capacity 2^23
+   (``dense_oracle``), against the k-d tree oracle.
 
-Each engine's main path runs with the kernel launch counters reset just
-before and read just after. Each kernel is compared with its plain
-version at the shapes its path gives it, and timed with CUDA events:
+Each engine's main path, and each of the phases above, runs with the
+kernel launch counters reset just before and read just after. Each
+kernel is compared with its plain version at the shapes its path gives
+it, and timed with CUDA events:
 the steps one call at a time (closed loop), each kernel and its plain
 version over back-to-back calls. Each kernel's record holds its bound:
 the larger of the bytes it must move (inputs read once, outputs written
 once) at the H100's 3.35 TB/s and its box tests (six float compares
 each, counted from this run's window and chunk tables) at 67 TFLOP/s
-float32.
+float32; the pair emission's bytes are the mask words read once and two
+uint32 ids written per pair.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -73,6 +90,22 @@ HETERO_ROUTES = {
                       ("big_count", "big_pairs", "slab_count", "slab_masks",
                        "compact_mask")),
 }
+#: The fills rerun past BIG_FILL_THRESHOLD, where the emission kernel runs.
+BIG_CAPACITY = 1 << 22
+#: The reference's dense benchmark scene: n, radius bound, the capacity
+#: it is called with, its pair count and the route of the exact attempt
+#: (computed with the JAX package's host code from the same scene).
+DENSE_N = 307200
+DENSE_R = 0.06
+DENSE_CAPACITY = 110_000_000
+DENSE_PAIRS = 107_651_273
+DENSE_ROUTE = {"method": "column", "gxy": 14, "col_capacity": 4608,
+               "slab_rows": 295, "rpw": 12}
+#: The dense radii at a size the k-d tree oracle checks in seconds.
+ORACLE_N = 65536
+ORACLE_CAPACITY = 1 << 23
+#: Pairs per chunk of the on-card checks of the dense buffer.
+CHECK_CHUNK = 1 << 24
 #: Back-to-back calls per timing sample of a kernel and its plain version.
 KERNEL_BATCH = 20
 #: Published H100 SXM peaks: HBM bytes/s and float32 FLOP/s outside the
@@ -125,12 +158,13 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
-    from collision_tpu_torch.kernels import bigpass, compact, slab_sweep, sweep
+    from collision_tpu_torch.kernels import (bigpass, compact, pair_emit,
+                                             slab_sweep, sweep)
 
     swaps = [(slab_sweep, "slab_count"), (slab_sweep, "slab_masks"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
-             (bigpass, "big_pairs")]
+             (bigpass, "big_pairs"), (pair_emit, "emit_pairs")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -251,7 +285,8 @@ def hetero_route(coords, radii):
 def hetero_path(name, scene, dev):
     """Drive ``auto`` on one mixed-radii scene at N spheres: the route,
     the launches of its count and full fill, the oracle, and a truncated
-    fill against the plain path. Returns (coords, radii, launches)."""
+    fill against the plain path. Returns (coords, radii, launches, full
+    fill)."""
     import torch
     from collision_tpu_torch import collide
     from collision_tpu_torch.testing import kdtree_collisions, pair_array_to_set
@@ -287,19 +322,183 @@ def hetero_path(name, scene, dev):
           fill_capacity=HETERO_CAPACITY, fill_total=int(res_fill.count),
           fill_ok=bool(res_fill.ok), launches=run, oracle_seconds=oracle_s,
           seconds=time.perf_counter() - t0)
-    return coords, radii, run
+    return coords, radii, run, res_fill
 
 
-def uniform_scene(n, dev):
+def uniform_scene(n, dev, r_max=None):
     """(coords, radii) numpy float32 and on the card: n uniform spheres
-    from SEED, radii U(0, 1/sqrt(n))."""
+    from SEED, radii U(0, r_max), by default U(0, 1/sqrt(n))."""
     import torch
 
     rng = np.random.RandomState(SEED)
     coords_np = rng.random((n, 3)).astype("float32")
-    radii_np = rng.uniform(0, 1 / n ** 0.5, n).astype("float32")
+    radii_np = rng.uniform(0, 1 / n ** 0.5 if r_max is None else r_max,
+                           n).astype("float32")
     return (coords_np, radii_np, torch.from_numpy(coords_np).to(dev),
             torch.from_numpy(radii_np).to(dev))
+
+
+def big_capacity(cases):
+    """Each (label, fill at BIG_CAPACITY, the same scene's sparse-path
+    fill): the pair-emission kernel launched once, the same ok and count,
+    the sparse fill's pairs bit for bit, 0xFFFFFFFF after them."""
+    import torch
+
+    for label, fill_fn, sparse in cases:
+        t0 = time.perf_counter()
+        res, run = counted(fill_fn)
+        k = min(int(sparse.count), sparse.pairs.shape[0])
+        check(run["pair_emit"] == 1,
+              f"{label} capacity {BIG_CAPACITY}: pair_emit launched "
+              f"{run['pair_emit']}x")
+        check(bool(res.ok) and int(res.count) == int(sparse.count)
+              and bool(sparse.ok),
+              f"{label} capacity {BIG_CAPACITY}: ok, count {int(res.count)}")
+        check(torch.equal(res.pairs[:k], sparse.pairs[:k]),
+              f"{label} capacity {BIG_CAPACITY}: == sparse-path pairs, bit "
+              "for bit")
+        check(bool((res.pairs[int(res.count):] == 0xFFFFFFFF).all()),
+              f"{label} capacity {BIG_CAPACITY}: 0xFFFFFFFF past the count")
+        phase("big_capacity", scene=label, capacity=BIG_CAPACITY,
+              count=int(res.count), launches=run,
+              seconds=time.perf_counter() - t0)
+
+
+def check_pair_buffer(pairs, count, coords, radii, label):
+    """On the card, in chunks: every pair's ids in range, its boxes
+    strictly overlapping on all 3 axes, no self pair, no unordered pair
+    twice (sorted min*n + max keys), 0xFFFFFFFF past the count. Unique,
+    truly overlapping pairs as many as an independent count are the true
+    set."""
+    import torch
+
+    n = coords.shape[0]
+    k = int(count)
+    lo, hi = coords - radii[:, None], coords + radii[:, None]
+    keys = torch.empty((k,), dtype=torch.int64, device=coords.device)
+    in_range = overlap = no_self = True
+    for s in range(0, k, CHECK_CHUNK):
+        a, b = pairs[s:min(s + CHECK_CHUNK, k)].unbind(1)
+        in_range &= bool(((a >= 0) & (a < n) & (b >= 0) & (b < n)).all())
+        if not in_range:
+            break
+        overlap &= bool(((hi[a] > lo[b]) & (lo[a] < hi[b])).all())
+        no_self &= bool((a != b).all())
+        keys[s:s + a.shape[0]] = torch.minimum(a, b) * n + torch.maximum(a, b)
+    check(in_range, f"{label}: every id < n")
+    check(overlap, f"{label}: every pair's boxes overlap on all 3 axes")
+    check(no_self, f"{label}: no self pair")
+    keys = torch.sort(keys).values
+    check(bool((keys[1:] != keys[:-1]).all()), f"{label}: no pair repeats")
+    check(bool((pairs[k:] == 0xFFFFFFFF).all()),
+          f"{label}: 0xFFFFFFFF past the count")
+
+
+def dense_fill(dev, record, launches):
+    """The reference's dense scene through ``Collider.get_collisions``:
+    the route, launches, count and pairs of its attempts, the count-only
+    call, the buffer checks, the plain path, step times and the emission
+    kernel's record, whose launches are the fill's (``launches``)."""
+    import torch
+    from collision_tpu_torch import Collider, collide, collider, columns, fill
+    from collision_tpu_torch.kernels import _build, pair_emit, sweep
+
+    t0 = time.perf_counter()
+    _, _, coords, radii = uniform_scene(DENSE_N, dev, DENSE_R)
+    attempts = []
+    direct = collider.collide
+
+    def spy(*args, **kwargs):
+        before = _build.LAUNCHES["pair_emit"]
+        res = direct(*args, **kwargs)
+        attempts.append({"knobs": kwargs, "ok": bool(res.ok),
+                         "count": int(res.count),
+                         "pair_emit": _build.LAUNCHES["pair_emit"] - before})
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    collider.collide = spy
+    try:
+        (count, pairs), run = counted(lambda: Collider(DENSE_N).get_collisions(
+            coords, radii, DENSE_CAPACITY))
+    finally:
+        collider.collide = direct
+    peak = torch.cuda.max_memory_allocated()
+    exact = attempts[-1]
+    check(len(attempts) == 2 and not attempts[0]["ok"] and exact["ok"],
+          f"dense: first attempt not ok, the retry ok ({attempts})")
+    check(exact["knobs"] == DENSE_ROUTE,
+          f"dense: the exact attempt's route {exact['knobs']}")
+    check(exact["pair_emit"] == 1,
+          f"dense: the exact attempt launched pair_emit {exact['pair_emit']}x")
+    check(int(count) == DENSE_PAIRS, f"dense: count {int(count)}")
+    count_only = Collider(DENSE_N).get_collisions(coords, radii, 0,
+                                                  collisions=None)
+    check(int(count_only) == int(count),
+          f"dense: count-only {int(count_only)} == fill count")
+    check_pair_buffer(pairs, count, coords, radii, "dense")
+    route = {k: v for k, v in exact["knobs"].items() if k != "method"}
+    with plain_kernels():
+        plain = collide(coords, radii, DENSE_CAPACITY, method="column",
+                        **route)
+    check(torch.equal(plain.pairs, pairs),
+          "dense: pairs == plain path's, bit for bit")
+    del plain
+    step_ms = time_ms(lambda: Collider(DENSE_N).get_collisions(
+        coords, radii, DENSE_CAPACITY), warmup=1, reps=3)
+    exact_ms = time_ms(lambda: collide(
+        coords, radii, DENSE_CAPACITY, method="column", **route),
+        warmup=1, reps=3)
+
+    # The emission kernel against its plain version at the exact plan.
+    plan = columns.plan_columns(coords, radii, route["gxy"],
+                                route["col_capacity"], route["slab_rows"])
+    B = sweep.sweep_masks(plan, route["rpw"])
+    rp = pair_emit.row_popcounts(B)
+    ws, cb = fill._emit_tables(B, plan.starts.long(),
+                               plan.w0.reshape(-1).long(), plan.mc,
+                               sweep.NOFF, route["rpw"], rolled=False)
+    ids = fill._sorted_ids(plan)
+    args = (B, ws, cb, ids, DENSE_CAPACITY, rp)
+    got = pair_emit.emit_pairs(*args)
+    want = pair_emit.emit_pairs_plain(*args)
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    check(torch.equal(got[0], pairs[:, 0]) and torch.equal(got[1], pairs[:, 1]),
+          "dense: pair_emit at the exact plan == the Collider's pairs")
+    del got, want, pairs
+    launches["pair_emit"] = run["pair_emit"]
+    record("pair_emit", "collision_tpu_torch/csrc/pair_emit.cu",
+           "collision_tpu/kernels/pair_emit.py:217", err,
+           lambda: pair_emit.emit_pairs(*args),
+           lambda: pair_emit.emit_pairs_plain(*args),
+           nbytes(B) + 8 * int(rp.sum()), 0, plain_batch=1, plain_reps=1)
+    phase("dense_fill", n=DENSE_N, r_max=DENSE_R, capacity=DENSE_CAPACITY,
+          count=int(count), count_only=int(count_only), attempts=attempts,
+          launches=run, mask_words=B.numel(), step_ms=step_ms,
+          exact_attempt_ms=exact_ms, peak_bytes=peak,
+          seconds=time.perf_counter() - t0)
+
+
+def dense_oracle(dev):
+    """``collide_exact`` on ORACLE_N spheres of the dense radii, above the
+    emission threshold, against the k-d tree oracle."""
+    from collision_tpu_torch import collide_exact
+    from collision_tpu_torch.testing import kdtree_collisions
+
+    t0 = time.perf_counter()
+    coords_np, radii_np, coords, radii = uniform_scene(ORACLE_N, dev, DENSE_R)
+    res, run = counted(lambda: collide_exact(coords, radii, ORACLE_CAPACITY))
+    t1 = time.perf_counter()
+    expected = kdtree_collisions(coords_np, radii_np)
+    oracle_s = time.perf_counter() - t1
+    check(len(expected) > 1 << 21, f"dense_oracle: {len(expected)} pairs > 2^21")
+    check(run["pair_emit"] >= 1, f"dense_oracle: pair_emit launched "
+          f"{run['pair_emit']}x")
+    check_fill(res, expected, f"dense_oracle n={ORACLE_N}")
+    phase("dense_oracle", n=ORACLE_N, r_max=DENSE_R,
+          capacity=ORACLE_CAPACITY, pairs=len(expected),
+          count=int(res.count), ok=bool(res.ok), launches=run,
+          oracle_seconds=oracle_s, seconds=time.perf_counter() - t0)
 
 
 def counted(fn):
@@ -379,14 +578,15 @@ def main():
     launches = dict(slab_launches)
 
     def record(name, source, replaces, err, fn, plain_fn, moved, tests,
-               library_fn=None, plain_batch=KERNEL_BATCH):
+               library_fn=None, plain_batch=KERNEL_BATCH, plain_reps=10):
         check(err == 0, f"{name}: kernel == plain (max_abs_err {err})")
         bound_ms, bound_by = bound(moved, tests)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": time_ms(fn, batch=KERNEL_BATCH),
-            "plain_ms": time_ms(plain_fn, batch=plain_batch),
+            "plain_ms": time_ms(plain_fn, warmup=min(2, plain_reps),
+                                reps=plain_reps, batch=plain_batch),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library_fn is None
             else time_ms(library_fn, batch=KERNEL_BATCH)})
@@ -549,10 +749,11 @@ def main():
 
     # --- auto on the two mixed-radii scenes: the hetero engine ---
     hetero_scenes = {}
+    hetero_fills = {}
     big_launches = {"big_count": 0, "big_pairs": 0}
     for name, scene in (("hetero_powerlaw", powerlaw_scene),
                         ("hetero_giants", giants_scene)):
-        c, r, run = hetero_path(name, scene, dev)
+        c, r, run, hetero_fills[name] = hetero_path(name, scene, dev)
         hetero_scenes[name] = (c, r)
         for kernel in big_launches:
             big_launches[kernel] += run[kernel]
@@ -604,6 +805,15 @@ def main():
         phase("hetero_steps", scene=name, n=N,
               fill_capacity=HETERO_CAPACITY, **het_steps,
               seconds=time.perf_counter() - t0)
+
+    # --- the emission kernel above 2^21 pairs ---
+    big_capacity(
+        [("slab_uniform", lambda: collide(coords, radii, BIG_CAPACITY,
+                                          method="slab"), res_fill)]
+        + [(name, lambda c=c, r=r: collide(c, r, BIG_CAPACITY),
+            hetero_fills[name]) for name, (c, r) in hetero_scenes.items()])
+    dense_fill(dev, record, launches)
+    dense_oracle(dev)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

@@ -12,9 +12,12 @@ Ported: ``method="slab"``, ``"column"``, ``"hetero"`` (mixed radii: the
 largest spheres parked out of the small pass) and ``"auto"`` (the
 default: the hetero engine on scenes its radius probe finds
 heterogeneous, else slab or column by n), for float32 count-only steps
-and for fills up to ``fill.BIG_FILL_THRESHOLD`` pairs.
+and fills at any capacity; and the reference's ``Collider`` API
+(``get_collisions``) and ``collide_exact``, which retry a step whose
+``ok`` is False with exact knobs. ``Collider`` runs on the card unless
+it is given ``device="cpu"``.
 """
 
-from .collider import CollisionResult, collide
+from .collider import Collider, CollisionResult, collide, collide_exact
 
-__all__ = ["CollisionResult", "collide"]
+__all__ = ["Collider", "CollisionResult", "collide", "collide_exact"]

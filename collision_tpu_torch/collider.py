@@ -1,4 +1,6 @@
-"""Public broad-phase API: ``collide`` (collision_tpu/collider.py).
+"""Public broad-phase API: the functional ``collide`` step, and the
+reference's ``Collider`` with ``collide_exact``, which retry with exact
+knobs (collision_tpu/collider.py).
 
 Contracts kept from the JAX package (and its reference):
   1. the pairs are the unordered pairs of original sphere ids whose
@@ -6,9 +8,11 @@ Contracts kept from the JAX package (and its reference):
   2. the pair order is deterministic;
   3. the count is the true total even past ``capacity``, and only the
      first ``capacity`` pairs are written;
-  4. capacity == 0 counts without a pair buffer;
+  4. capacity == 0 counts without a pair buffer; ``Collider`` raises
+     ValueError when pairs are asked for with no buffer;
   5. ``ok`` is False when a static knob was too small; the result is
-     then not to be trusted, and the caller retries with larger knobs.
+     then not to be trusted, and the caller retries with larger knobs
+     (``Collider`` and ``collide_exact`` do so from the plans' stats).
 """
 
 import math
@@ -18,12 +22,13 @@ import numpy as np
 import torch
 
 from .columns import CHUNK, _f32, default_column_config, plan_columns
-from .fill import BIG_FILL_THRESHOLD, mask_fill, slab_mask_fill
-from .hetero import default_nb, hetero_collide
+from .fill import mask_fill, slab_mask_fill
+from .hetero import _big_indices, default_nb, hetero_collide
 from .kernels.slab_sweep import slab_count_dual
 from .kernels.sweep import RPW_LADDER, sweep_count_guarded
 from .ops import scene_bounds
 from .slabs import NO_PAIR, default_slab_config, plan_slabs
+from .utils import round_up
 
 #: Default rows per window of the column count and fill.
 DEFAULT_RPW = 2
@@ -51,6 +56,11 @@ SLAB_SLACK_MAX = 40.0
 #: predicted test reach (2*r_mean + 2*r_max) for a scene to count as
 #: heterogeneous.
 HETERO_GAIN_MIN = 2.0
+
+#: Largest rows-per-window rung the retry ladders climb to before they
+#: prefer a finer grid (gxy x2): cells clamp at 2*r_max, so a finer gxy
+#: never changes a result, and it narrows the windows.
+RPW_RETRY_MAX = 48
 
 _PORTED = ("auto", "slab", "column", "hetero")
 _UNPORTED = ("grid", "bvh")
@@ -95,8 +105,9 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
     Args:
       coords: float32 [n, 3] sphere centers (n >= 1).
       radii:  float32 [n] sphere radii, on the same device.
-      capacity: pair-buffer capacity; 0 = count-only. At most
-        ``fill.BIG_FILL_THRESHOLD``.
+      capacity: pair-buffer capacity; 0 = count-only. Fills above
+        ``fill.BIG_FILL_THRESHOLD`` emit through the pair-emission
+        kernel.
       method: "slab" (x-sorted two-offset slab sweep, slabs.py),
         "column" (z-sorted column sweep + mask fill, columns.py),
         "hetero" (the ``nb`` largest spheres parked out of the small
@@ -135,11 +146,6 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
     capacity = int(capacity)
     if capacity < 0:
         raise ValueError("capacity must be >= 0")
-    if capacity > BIG_FILL_THRESHOLD:
-        raise NotImplementedError(
-            f"capacity {capacity} > BIG_FILL_THRESHOLD ({BIG_FILL_THRESHOLD}): "
-            "large-capacity emission is not ported yet (ROADMAP.md, modules "
-            "item 8)")
     n = coords.shape[0]
     # The hetero engine's S-S pass: the column engine when the caller
     # pinned column knobs or below the crossover, the slab engine above.
@@ -197,7 +203,7 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
 def _column_collide(coords, radii, capacity, gxy, col_capacity, slab_rows,
                     rpw, lo_scene, hi_scene):
     """Column-engine frame: the rolled count sweep, or the aligned masks
-    kernel plus the sparse emission."""
+    kernel plus the emission."""
     if capacity == 0:
         plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
         count, no_wrap = sweep_count_guarded(plan, rpw=rpw, rolled=True)
@@ -213,7 +219,7 @@ def _slab_collide(coords, radii, capacity, gx, col_capacity, slab_rows,
                   lo_scene, hi_scene):
     """Slab-engine frame: the dual-dispatch count (one-row sweep kernel +
     residual jobs) or the dual-dispatch fill (one-row masks kernel +
-    residual pairs + sparse emission)."""
+    residual pairs + emission)."""
     if capacity == 0:
         plan = plan_slabs(coords, radii, gx, col_capacity, slab_rows)
         count, d_ok = slab_count_dual(plan)
@@ -346,3 +352,282 @@ def _route_hetero_eager(coords, radii, nb=None):
     if gain < HETERO_GAIN_MIN:
         return None
     return r_small, r_mean_s, ext
+
+
+def collide_exact(coords, radii, capacity, method="auto"):
+    """One broad-phase step with the exact-knob retries: one ``collide``
+    attempt and, when its ``ok`` is False, ``Collider``'s retry ladder.
+    Tensors stay on their device; other arrays go to the card. Returns a
+    :class:`CollisionResult` whose ``ok`` is True unless every rung
+    failed."""
+    device = coords.device if isinstance(coords, torch.Tensor) else None
+    c = Collider(coords.shape[0], coord_dtype=_numpy_dtype(coords),
+                 method=method, device=device)
+    coords, radii = c._inputs(coords, radii)
+    result = collide(coords, radii, capacity, method=method)
+    if not bool(result.ok):
+        result = c._retry_exact(coords, radii, int(capacity))
+    return result
+
+
+def _numpy_dtype(a):
+    if isinstance(a, torch.Tensor):
+        return np.dtype(str(a.dtype).removeprefix("torch."))
+    return np.asarray(a).dtype
+
+
+def _resolve_device(device):
+    """The card unless the caller names a device: the port has no
+    silent CPU fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain versions")
+    return torch.device("cuda")
+
+
+class Collider:
+    """The reference's Collider API (collision.py:32-135): holds (size,
+    ngroups, group_size, coord_dtype), exposes ``padded_size`` and
+    ``n_nodes``, validates the count-only contract, supports ``resize``,
+    and retries a step whose ``ok`` is False with exact knobs read from
+    the plans' statistics.
+
+    ``device`` is where the steps run: the card by default (raising when
+    there is none), or ``"cpu"``, where each kernel's plain version runs.
+    Only float32 steps are ported; a float64 Collider's
+    ``get_collisions`` raises ``NotImplementedError``.
+    """
+
+    def __init__(self, size, ngroups=8, group_size=128,
+                 coord_dtype=np.dtype("float32"), method="auto",
+                 device=None):
+        coord_dtype = np.dtype(coord_dtype)
+        if coord_dtype.kind != "f":
+            raise ValueError(f"Invalid dtype: {coord_dtype}")
+        self._check_params(size, ngroups, group_size)
+        self.size = size
+        self.ngroups = ngroups
+        self.group_size = group_size
+        self.coord_dtype = coord_dtype
+        #: Engine selection forwarded to :func:`collide`.
+        self.method = method
+        self.device = _resolve_device(device)
+
+    @staticmethod
+    def _check_params(size, ngroups, group_size):
+        """The reference's size and shape checks (collision.py:84-119,
+        radix.py:61-74): positive integer sizes, group sizes powers of
+        two."""
+        if not isinstance(size, (int, np.integer)) or size < 1:
+            raise ValueError(f"Invalid size: {size!r}")
+        if not isinstance(ngroups, (int, np.integer)) or ngroups < 1:
+            raise ValueError(f"Invalid ngroups: {ngroups!r}")
+        if (not isinstance(group_size, (int, np.integer)) or group_size < 1
+                or (group_size & (group_size - 1)) != 0):
+            raise ValueError(
+                f"group_size must be a positive power of two, got "
+                f"{group_size!r}")
+
+    @property
+    def n_nodes(self):
+        return self.size * 2 - 1
+
+    @property
+    def padded_size(self):
+        """The reference's sorter-granularity padding (collision.py:
+        125-128); nothing is padded here, callers sized buffers by it."""
+        return round_up(self.size, 2 * self.group_size)
+
+    def resize(self, size=None, ngroups=None, group_size=None,
+               radix_bits=None):
+        """Revalidate and apply; on an invalid configuration raise before
+        any state changes, so the prior state stays (collision.py:84-119,
+        radix.py:93-97)."""
+        new_size = self.size if size is None else size
+        new_ngroups = self.ngroups if ngroups is None else ngroups
+        new_group_size = self.group_size if group_size is None else group_size
+        self._check_params(new_size, new_ngroups, new_group_size)
+        if radix_bits is not None and (
+                not isinstance(radix_bits, (int, np.integer))
+                or radix_bits < 1 or 32 % radix_bits != 0
+                or 2 ** radix_bits > 2 * new_group_size):
+            raise ValueError(f"Invalid radix_bits: {radix_bits!r}")
+        self.size = new_size
+        self.ngroups = new_ngroups
+        self.group_size = new_group_size
+
+    def _inputs(self, coords, radii):
+        dtype = getattr(torch, self.coord_dtype.name)
+        return (torch.as_tensor(coords, dtype=dtype, device=self.device),
+                torch.as_tensor(radii, dtype=dtype, device=self.device))
+
+    def get_collisions(self, coords, radii, n_collisions, collisions=True):
+        """One frame, as the reference's get_collisions (collision.py:
+        130-198).
+
+        Args:
+          coords: [size, 3] centers; radii: [size] radii (numpy arrays or
+            tensors; they go to the Collider's device).
+          n_collisions: pair-buffer capacity.
+          collisions: None for count-only mode (with n_collisions == 0);
+            None with n_collisions > 0 raises ValueError.
+
+        Returns:
+          the int64 count when count-only, else (count, pairs int64
+          [n_collisions, 2]).
+        """
+        if collisions is None and n_collisions > 0:
+            raise ValueError("Invalid collisions_buf for n_collisions > 0")
+        coords, radii = self._inputs(coords, radii)
+        if tuple(coords.shape) != (self.size, 3):
+            raise ValueError(
+                f"Expected coords of shape {(self.size, 3)}, got "
+                f"{tuple(coords.shape)}")
+        capacity = int(n_collisions)
+        result = collide(coords, radii, capacity, method=self.method)
+        if not bool(result.ok):
+            result = self._retry_exact(coords, radii, capacity)
+        if collisions is None or n_collisions == 0:
+            return result.count
+        return result.count, result.pairs
+
+    def _retry_exact(self, coords, radii, capacity):
+        """Retry with exact knobs from the engines' statistics: the hetero
+        engine first on a heterogeneous scene, then the column engine at
+        the plan's exact capacities and rows-per-window rung, then the
+        hetero ladder, then the BVH. With every rung failed it returns the
+        best attempt, whose ``ok`` is False."""
+        if self.coord_dtype != np.float32:
+            raise NotImplementedError(
+                "the float64 retry (run-expansion fill, BVH) is not ported "
+                "yet (ROADMAP.md, modules items 10-11)")
+        if self.size > CHUNK:
+            s = _hetero_stats(coords, radii, default_nb(self.size)).tolist()
+            r_max, r_small, r_mean_s, r_mean_all = s[:4]
+            gain = (r_mean_all + r_max) / max(r_mean_s + r_small, 1e-30)
+            if (gain >= HETERO_GAIN_MIN
+                    and _predicted_slab_slack(self.size, r_max, r_mean_all,
+                                              s[4:7]) > SLAB_SLACK_MAX):
+                res = self._hetero_exact(coords, radii, capacity)
+                if res is not None:
+                    return res
+        # The column plan reports the exact column occupancy, slab height
+        # and window rows it needs.
+        gxy, col_cap, slab_rows = default_column_config(self.size)
+        ext_xy = float((coords.amax(0)[:2] - coords.amin(0)[:2]).max())
+        r_max_all = float(radii.max())
+        last = None
+        for _ in range(6):
+            plan = plan_columns(coords, radii, gxy, col_cap, slab_rows)
+            need_col = round_up(int(plan.max_col), CHUNK)
+            need_slab = int(plan.max_slab_rows) + 2
+            need_rpw = int(plan.rows_needed)
+            if (need_rpw > RPW_RETRY_MAX and gxy < 256
+                    and ext_xy / (2 * gxy) >= 2 * r_max_all):
+                # Deep windows on a clustered scene: a finer grid narrows
+                # them (cells clamp at 2*r_max, so it stays exact).
+                gxy *= 2
+                _, col_cap, slab_rows = default_column_config(self.size,
+                                                              gxy=gxy)
+                continue
+            if (need_col <= col_cap and need_slab <= slab_rows
+                    and need_rpw <= RPW_LADDER[-1]):
+                rpw = next(r for r in RPW_LADDER if r >= need_rpw)
+                res = last = collide(
+                    coords, radii, capacity, method="column", gxy=gxy,
+                    col_capacity=col_cap, slab_rows=slab_rows, rpw=rpw)
+                if bool(res.ok):
+                    return res
+            # Stats taken under too-small capacities: adopt the exact
+            # requirements and plan again (the second plan sees the full
+            # window tables).
+            col_cap = max(col_cap, need_col)
+            slab_rows = max(slab_rows, need_slab)
+        res = self._hetero_exact(coords, radii, capacity)
+        if res is not None:
+            return res
+        res = self._bvh_exact(coords, radii, capacity)
+        if res is not None:
+            return res
+        if last is not None:
+            return last
+        return collide(coords, radii, capacity, method="column", gxy=gxy,
+                       col_capacity=col_cap, slab_rows=slab_rows,
+                       rpw=RPW_LADDER[-1])
+
+    def _hetero_exact(self, coords, radii, capacity):
+        """Hetero-engine retry with plan-statistic knobs: the slab S-S
+        pass at the route's ``gx`` (escalated while only a finer grid can
+        help), then column S-S passes at nb, 4*nb and 16*nb parked
+        spheres, each with its plan's exact capacities and rows-per-window
+        rung. None when no split reaches ``ok`` or the scene is too
+        small."""
+        if self.size <= 2 * CHUNK:
+            return None
+        nb0 = default_nb(self.size)
+        stats = _hetero_stats(coords, radii, nb0).tolist()
+        route = _hetero_route_knobs(self.size, nb0, stats[1], stats[2],
+                                    stats[4:7])
+        if self.size >= HETERO_SLAB_MIN and route[0] == "slab":
+            gx = route[1]
+            lo_s, hi_s = scene_bounds(coords)
+            for _ in range(3):
+                pairs, total, ok, (_, other_ok) = hetero_collide(
+                    coords, radii, capacity, nb=nb0, engine="slab", gx=gx,
+                    with_flags=True)
+                if bool(ok):
+                    return CollisionResult(total, pairs, lo_s, hi_s, ok)
+                if not bool(other_ok):
+                    break
+                ngx = _quantize_gx(int(gx * 1.5) + 1)
+                if ngx == gx:
+                    break
+                gx = ngx
+        nb_cap = max(CHUNK, (self.size // (2 * CHUNK)) * CHUNK)
+        ext_xy = float((coords.amax(0)[:2] - coords.amin(0)[:2]).max())
+        tried = set()
+        for nb in (nb0, nb0 * 4, nb0 * 16):
+            nb = min(nb, nb_cap)
+            if nb in tried:
+                continue
+            tried.add(nb)
+            parked = radii.index_fill(0, _big_indices(radii, nb), -np.inf)
+            if nb == nb0 and route[0] == "column":
+                gxy, col_cap, slab_rows = route[1:4]
+            else:
+                gxy, col_cap, slab_rows = default_column_config(self.size)
+            r_small = float(parked.max())
+            need_rpw = None
+            for _ in range(5):
+                plan = plan_columns(coords, parked, gxy, col_cap, slab_rows)
+                need_col = round_up(int(plan.max_col), CHUNK)
+                need_slab = int(plan.max_slab_rows) + 2
+                need_rpw = int(plan.rows_needed)
+                if bool(plan.ok) and need_rpw <= RPW_RETRY_MAX:
+                    break
+                if need_rpw > RPW_RETRY_MAX:
+                    if gxy < 256 and ext_xy / (2 * gxy) >= 2 * r_small:
+                        gxy *= 2
+                        _, col_cap, slab_rows = default_column_config(
+                            self.size, gxy=gxy)
+                        continue
+                    need_rpw = None     # this split cannot fit; park more
+                    break
+                col_cap = max(col_cap, need_col)
+                slab_rows = max(slab_rows, need_slab)
+            if need_rpw is None or need_rpw > RPW_RETRY_MAX:
+                continue
+            rpw = next(r for r in RPW_LADDER if r >= max(need_rpw, 1))
+            res = collide(coords, radii, capacity, method="hetero", nb=nb,
+                          rpw=rpw, gxy=gxy, col_capacity=col_cap,
+                          slab_rows=slab_rows)
+            if bool(res.ok):
+                return res
+        return None
+
+    def _bvh_exact(self, coords, radii, capacity):
+        """The last rung, the always-exact BVH engine: None until the LBVH
+        is ported (ROADMAP.md, modules item 11)."""
+        return None

@@ -1,5 +1,6 @@
 // Block-wide exclusive scan of one int per thread, shared by the
-// compaction (compact.cu) and the big-sphere pass (bigpass.cu).
+// compaction (compact.cu), the big-sphere pass (bigpass.cu) and the pair
+// emission (pair_emit.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -5,51 +5,31 @@ chunk against ``rpw`` aligned rows of its 5 windows. The slab fill
 (``slab_mask_fill``, ``slab_fill_from_plan``) tests every chunk against
 one rolled row of its 2 windows (two rows in the hetero engine's slab
 pass), and the rare window remainders past them go to
-``slabs.residual_pairs``, appended after the mask pairs. A sparse
-two-level emission decodes the mask words into pairs in (mask row, lane,
-bit) order. Ids are uint32 values held in int64; unused slots hold
-0xFFFFFFFF.
+``slabs.residual_pairs``, appended after the mask pairs. The emission
+decodes the mask words into pairs in (mask row, lane, bit) order. Ids
+are uint32 values held in int64; unused slots hold 0xFFFFFFFF.
 
-Emission is plain PyTorch, as it is plain XLA in the JAX package. Only
-the sparse emission is ported: capacities above ``BIG_FILL_THRESHOLD``
-(the JAX package's blocked and in-kernel emitters) make ``collide``
-raise ``NotImplementedError``.
+Two emitters, as in the JAX package (``_pick_emit``): up to
+``BIG_FILL_THRESHOLD`` slots the sparse two-level compaction of
+``_mask_fill_emit`` (plain PyTorch); above it ``kernels/pair_emit``
+(a CUDA kernel on the card, the blocked plain emission on the CPU).
 """
 
 import torch
 
 from .columns import CHUNK, LANE, plan_columns
-from .kernels import slab_sweep, sweep
+from .kernels import pair_emit, slab_sweep, sweep
+from .kernels.pair_emit import popcount, row_popcounts, row_words, select_bit
 from .ops import inclusive_scan, sorted_bucket_starts
 from .slabs import NO_PAIR, SLAB_OFFSETS, plan_slabs, residual_pairs
 
-#: Capacity above which the JAX package switches to its blocked and
-#: in-kernel emitters, which are not ported yet.
+#: Capacity above which the emission leaves the sparse path, whose
+#: compaction tables and searchsorted windows are capacity-sized, for
+#: the pair-emission kernel.
 BIG_FILL_THRESHOLD = 1 << 21
 
-def _popcount(w):
-    """Set bits of each uint32 value held in an int64 tensor (SWAR: torch
-    has no popcount op)."""
-    w = w - ((w >> 1) & 0x55555555)
-    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
-    w = (w + (w >> 4)) & 0x0F0F0F0F
-    return ((w * 0x01010101) >> 24) & 0xFF
 
-
-def _select_bit(word, rank):
-    """Index of the ``rank``-th set bit of ``word`` (binary partition by
-    popcount, five rounds)."""
-    pos = torch.zeros_like(word)
-    rem = rank
-    for width in (16, 8, 4, 2, 1):
-        c = _popcount(word & (((1 << width) - 1) << pos))
-        right = c <= rem
-        rem = torch.where(right, rem - c, rem)
-        pos = torch.where(right, pos + width, pos)
-    return pos
-
-
-def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
+def _mask_fill_emit(B, rp, starts, w0_flat, mc, ids_flat, capacity, total,
                     noff, rpw, rolled):
     """(ida, idb, trunc_safe): the first ``capacity`` pairs of packed
     sweep masks, in (mask row, lane, bit) order.
@@ -57,20 +37,20 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
     The masks are the column engine's (``noff=5`` offsets, ``rpw``
     aligned rows: lane l of window row r is sorted sphere
     (w0 // 128 + r) * 128 + l) or the slab engine's (``noff=2``,
-    ``rpw=1``, ``rolled=True``: lane l is w0 + l). ``W`` is the mask
-    buffer as int64 words [rows, 128], ``rp`` its
-    per-row popcounts. Rows with no set bit, then words with no set bit,
-    are compacted away, at most ``capacity + 8`` of each (each kept row
+    ``rpw=1``, ``rolled=True``: lane l is w0 + l). ``B`` is the mask
+    buffer, ``rp`` its int64 per-row popcounts. Rows with no set bit,
+    then words with no set bit, are compacted away, at most
+    ``capacity + 8`` of each (each kept row
     and word holds a pair, so the prefix is exact; ``trunc_safe`` says
     when the cut provably kept every pair below ``capacity``). Each slot
     then finds its word by a searchsorted into the kept words' cumulative
     popcounts, its bit by rank-select, and decodes (row, lane, bit) to
     the two sorted positions.
     """
-    dev = W.device
+    dev = B.device
     kg, ng = sweep.mask_groups(mc, rpw)
     kgt = kg * noff * rpw
-    Rw = W.shape[0]
+    Rw = rp.shape[0]
     imax = 2 ** 31 - 1
     cap_k = capacity + 8
 
@@ -80,13 +60,13 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
     nkr = ic_r[-1]
     ordr = torch.arange(RK, device=dev)
     rsel = torch.clamp_max(sorted_bucket_starts(ic_r, ordr + 1), Rw - 1)
-    rows = torch.where((ordr < nkr)[:, None], W[rsel], 0)       # [RK, 128]
+    rows = torch.where((ordr < nkr)[:, None], row_words(B, rsel), 0)
     csum_rp = inclusive_scan(rp)
     safe_r = (nkr <= RK) | (csum_rp[rsel[RK - 1]] >= capacity)
 
     # --- level 2: compact nonzero words within kept rows ---
     wflat = rows.reshape(-1)
-    wpcf = _popcount(wflat)
+    wpcf = popcount(wflat)
     ic_pf = inclusive_scan(wpcf)    # pair cum (== global: dropped rows are empty)
     WK = max(min(RK * LANE, cap_k), 1)
     ic_w = inclusive_scan((wpcf > 0).to(torch.int32))
@@ -106,7 +86,7 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
     q = torch.arange(capacity, device=dev)
     sel = torch.clamp_max(sorted_bucket_starts(wcum_s, q + 1), WK - 1)
     rank = torch.clamp_min(q - (wcum_s[sel] - wpc_s[sel]), 0)
-    bit = _select_bit(wval[sel], rank)
+    bit = select_bit(wval[sel], rank)
     R = grow_w[sel]
     lane = lane_w[sel]
 
@@ -133,12 +113,56 @@ def _mask_fill_emit(W, rp, starts, w0_flat, mc, ids_flat, capacity, total,
             safe_r & safe_w)
 
 
-def _mask_words(B):
-    """(W, rp, total): a mask buffer as int64 words [rows, 128], each
-    row's set bits, and the exact int64 number of set bits."""
-    W = B.reshape(-1, LANE).long() & 0xFFFFFFFF
-    rp = _popcount(W).sum(dim=1)
-    return W, rp, rp.sum()
+def _emit_tables(B, starts, w0_flat, mc, noff, rpw, rolled):
+    """(wstart_tab, cb_tab), int64 [NB, KGT]: each mask row group's
+    sorted window start and chunk start, by reshapes and broadcasts of
+    the plan's window table, for the rolled (slab) and the aligned
+    (column) layout. A group past the last chunk (KG*NG > mc) gets the
+    last chunk's windows, as in the JAX package; its rows are empty."""
+    kg, ng = sweep.mask_groups(mc, rpw)
+    kgt = kg * noff * rpw
+    NB = B.shape[0]
+    ncols = NB // ng
+    dev = B.device
+    w3 = w0_flat.reshape(ncols, mc, noff)
+    pad = kg * ng - mc
+    if pad:
+        w3 = torch.cat([w3, w3[:, -1:, :].expand(ncols, pad, noff)], dim=1)
+    w4 = w3.reshape(NB, kg, noff, 1)
+    r_i = torch.arange(rpw, device=dev)
+    if rolled:
+        wstart = w4 + r_i * LANE
+    else:
+        wstart = (w4 // LANE + r_i) * LANE
+    k_tab = torch.clamp_max(
+        torch.arange(ng, device=dev)[:, None] * kg
+        + torch.arange(kg, device=dev)[None, :], mc - 1)      # [ng, kg]
+    cb3 = starts[:ncols, None, None] + k_tab[None] * CHUNK     # [ncols, ng, kg]
+    cb_tab = cb3.reshape(NB, kg, 1).expand(NB, kg, noff * rpw)
+    return wstart.reshape(NB, kgt), cb_tab.reshape(NB, kgt)
+
+
+def _mask_fill_emit_kernel(B, rp, starts, w0_flat, mc, ids_flat, capacity,
+                           total, noff, rpw, rolled):
+    """The pair-emission kernel (``pair_emit.emit_pairs``) over the rows'
+    tables: exact at any capacity, so its ``trunc_safe`` is True.
+    ``total`` is unused: slots past the mask pairs hold 0xFFFFFFFF."""
+    wstart_tab, cb_tab = _emit_tables(B, starts, w0_flat, mc, noff, rpw,
+                                      rolled)
+    ida, idb = pair_emit.emit_pairs(B, wstart_tab, cb_tab, ids_flat,
+                                    capacity, rp)
+    return ida, idb, torch.ones((), dtype=torch.bool, device=B.device)
+
+
+def _pick_emit(capacity):
+    """The emission for a capacity: the sparse path up to
+    ``BIG_FILL_THRESHOLD``, the kernel above it. The JAX package falls
+    back to its blocked path when the sorted ids do not fit the TPU's
+    VMEM (``KERNEL_EMIT_MAX_IDS``); the card has no such limit, so the
+    kernel takes every capacity above the threshold."""
+    if capacity > BIG_FILL_THRESHOLD:
+        return _mask_fill_emit_kernel
+    return _mask_fill_emit
 
 
 def _sorted_ids(plan):
@@ -157,20 +181,22 @@ def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=2):
 
 def column_fill_from_plan(plan, capacity, rpw):
     """(ida[capacity], idb[capacity], total, ok) from a column plan: the
-    masks kernel at ``rpw`` aligned rows and the sparse emission. The
-    uniform column fill and the hetero engine's column S-S pass share it.
+    masks kernel at ``rpw`` aligned rows and the emission
+    :func:`_pick_emit` picks. The uniform column fill and the hetero
+    engine's column S-S pass share it.
 
-    ``total`` is the true int64 pair count even past ``capacity`` (at
-    most ``BIG_FILL_THRESHOLD``; ``collide`` checks it). ``ok`` is False
-    when the plan's capacities or ``rpw`` were too small
+    ``total`` is the true int64 pair count even past ``capacity``. ``ok``
+    is False when the plan's capacities or ``rpw`` were too small
     (``plan.rows_needed > rpw``), when the total reached the JAX
-    package's int32 guard, or when the emission's row cut could have
-    dropped a pair.
+    package's int32 guard, or when the sparse emission's row cut could
+    have dropped a pair.
     """
-    W, rp, total = _mask_words(sweep.sweep_masks(plan, rpw))
+    B = sweep.sweep_masks(plan, rpw)
+    rp = row_popcounts(B)
+    total = rp.sum()
     ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
-    ida, idb, trunc_safe = _mask_fill_emit(
-        W, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
+    ida, idb, trunc_safe = _pick_emit(capacity)(
+        B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
         _sorted_ids(plan), capacity, total, noff=sweep.NOFF, rpw=rpw,
         rolled=False)
     return ida, idb, total, ok & trunc_safe
@@ -180,32 +206,33 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     """(ida[capacity], idb[capacity], total, ok) from a slab plan: the
     mask pairs of the masks kernel at ``dual_base`` rolled rows (windows
     clamped to dual_base*128 lanes), then the residual pairs of the lanes
-    past them, truncated at ``capacity`` (at most ``BIG_FILL_THRESHOLD``;
-    ``collide`` checks it). The uniform slab fill runs one row, the
-    hetero engine's slab S-S pass two.
+    past them, truncated at ``capacity``. The uniform slab fill runs one
+    row, the hetero engine's slab S-S pass two.
 
     ``total`` is the true int64 pair count even past ``capacity``. ``ok``
     is False when the plan's capacities, the residual job or pair
     capacity or the JAX package's int32 guard were exceeded, or when the
-    emission's row cut could have dropped a pair. ``split_ok`` returns
-    (ida, idb, total, gx_ok, other_ok) instead: gx_ok is what a finer
-    slab grid can fix (plan and residual capacities), other_ok the rest.
+    sparse emission's row cut could have dropped a pair. ``split_ok``
+    returns (ida, idb, total, gx_ok, other_ok) instead: gx_ok is what a
+    finer slab grid can fix (plan and residual capacities), other_ok the
+    rest.
     """
     sweep_plan = plan._replace(
         wcap=torch.clamp_max(plan.wcap, dual_base * LANE))
-    W, rp, mask_total = _mask_words(
-        slab_sweep.slab_sweep_masks(sweep_plan, dual_base))
+    B = slab_sweep.slab_sweep_masks(sweep_plan, dual_base)
+    rp = row_popcounts(B)
+    mask_total = rp.sum()
     rida, ridb, rcount, r_ok = residual_pairs(plan, base=dual_base)
     total = mask_total + rcount
     gx_ok = plan.ok & r_ok
     no_wrap = mask_total < sweep.INT32_GUARD
-    ida, idb, trunc_safe = _mask_fill_emit(
-        W, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
+    ida, idb, trunc_safe = _pick_emit(capacity)(
+        B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
         _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
         rpw=dual_base, rolled=True)
 
     # Append the residual pairs after the mask pairs.
-    q = torch.arange(capacity, device=W.device)
+    q = torch.arange(capacity, device=B.device)
     tm = torch.clamp_max(mask_total, capacity)
     in_m = q < tm
     qr = torch.clamp(q - tm, 0, rida.shape[0] - 1)

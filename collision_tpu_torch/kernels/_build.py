@@ -29,10 +29,12 @@ _LIB = _BUILD_DIR / "libcollision_kernels.so"
 #: path went through.
 LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_count_rolled": 0, "sweep_count_aligned": 0,
-            "sweep_masks": 0, "big_count": 0, "big_pairs": 0}
+            "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
+            "pair_emit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
     # stream, starts, w0, wcap, gx, mc, rpw, total, cuda stream
     "slab_count_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -43,7 +45,7 @@ _ARGTYPES = {
     # stream, starts, w0, wcap, ncols, mc, rpw, kg, ng, out, cuda stream
     "sweep_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # mask, n, capacity, block counts, total, out, nblk, cuda stream
-    "compact_launch": [_P, ctypes.c_longlong, _I, _P, _P, _P, _I, _P],
+    "compact_launch": [_P, _L, _I, _P, _P, _P, _I, _P],
     # mask elements per compaction block
     "compact_tile": [],
     # bigs, c0, c1, n_always, stream, rows, counts, total, cuda stream
@@ -51,6 +53,9 @@ _ARGTYPES = {
     # bigs, c0, c1, n_always, stream, rows, bases, capacity, ida, idb,
     # cuda stream
     "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+    # mask, wstart, cb, ids, nsort, bases, rows, capacity, ida, idb,
+    # cuda stream
+    "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _P],
 }
 
 

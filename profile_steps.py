@@ -8,7 +8,10 @@ U(0, 1/sqrt(n)), each engine's default config; and the two mixed-radii
 scenes that ``auto`` sends to the hetero engine (power-law radii, whose
 S-S pass runs on the column engine, and 512 giants among uniform radii,
 whose S-S pass runs on the slab engine), count and a fill with room for
-every pair. Prints one JSON line per reading:
+every pair; and the reference's dense scene (307200 spheres, radii
+U(0, 0.06), 107,651,273 pairs), its exact column attempt and the whole
+``Collider.get_collisions`` call with its retry. Prints one JSON line per
+reading:
 
 - ``stage``: each stage of a step (plan, sweep kernel, residual jobs,
   fill), median of 10 samples after warm-up: CUDA-event ms around one
@@ -16,7 +19,8 @@ every pair. Prints one JSON line per reading:
 - ``step``: unprofiled median ms of the whole count and fill steps of
   each engine (``count``, ``fill``: slab; ``column_count``,
   ``column_fill``: column; ``hetero_powerlaw_*``, ``hetero_giants_*``:
-  ``auto`` on the mixed-radii scenes).
+  ``auto`` on the mixed-radii scenes; ``dense_exact_fill``,
+  ``dense_get_collisions``).
 - ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
   Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
   read back. Device ops per step (kernel, memset and memcpy events),
@@ -25,7 +29,8 @@ every pair. Prints one JSON line per reading:
   the unprofiled step (1 - busy / step ms) and of the profiled wall. The
   profiler slows the host, so the profiled wall is not the step time.
   The divisor is checked: the step's sweep kernel must appear exactly
-  once per profiled step.
+  as often as it runs per step (once; twice in ``dense_get_collisions``,
+  whose first attempt comes back ok=False).
 - ``kernel``: device-only ms per launch of each hand-written kernel, from
   the trace.
 - ``top``: the largest device items of each step.
@@ -54,7 +59,8 @@ STEPS = 5
 KERNELS = re.compile(
     r"::(slab_count_kernel<[01]>|slab_masks_kernel<[01]>|"
     r"column_count_kernel<(?:true|false)>|column_masks_kernel|count_kernel|"
-    r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel)\(")
+    r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel|"
+    r"pair_emit_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -98,9 +104,11 @@ def union_ms(intervals):
     return busy / 1e3
 
 
-def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel):
+def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel,
+                 per_step=1):
     """Profile ``steps`` calls of ``fn``; returns False if the divisor
-    check fails."""
+    check fails (``sweep_kernel`` launched other than ``per_step`` times
+    a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,7 +148,7 @@ def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel):
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         emit("top", name=name, step=label, ms_per_step=ms,
              launches_per_step=cnt / steps)
-    if sweeps != steps:
+    if sweeps != steps * per_step:
         print(f"profile_steps: {label}: {sweeps} {sweep_kernel} launches in "
               f"{steps} steps", file=sys.stderr)
         return False
@@ -163,8 +171,10 @@ def main():
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    from chip_smoke import HETERO_CAPACITY, giants_scene, powerlaw_scene
-    from collision_tpu_torch import collide, columns, fill, slabs
+    from chip_smoke import (DENSE_CAPACITY, DENSE_N, DENSE_R, DENSE_ROUTE,
+                            HETERO_CAPACITY, giants_scene, powerlaw_scene,
+                            uniform_scene)
+    from collision_tpu_torch import Collider, collide, columns, fill, slabs
     from collision_tpu_torch.kernels import slab_sweep, sweep
 
     dev = torch.device("cuda")
@@ -196,6 +206,7 @@ def main():
 
     _, _, pl_coords, pl_radii = powerlaw_scene(N, dev)
     _, _, gi_coords, gi_radii = giants_scene(N, dev)
+    _, _, de_coords, de_radii = uniform_scene(DENSE_N, dev, DENSE_R)
     steps = {
         "count": (lambda: collide(coords, radii, 0, method="slab"),
                   "slab_count_kernel<1>"),
@@ -215,12 +226,18 @@ def main():
                                 "big_count_kernel"),
         "hetero_giants_fill": (lambda: collide(gi_coords, gi_radii,
                                                HETERO_CAPACITY),
-                               "big_emit_kernel")}
+                               "big_emit_kernel"),
+        "dense_exact_fill": (lambda: collide(de_coords, de_radii,
+                                             DENSE_CAPACITY, **DENSE_ROUTE),
+                             "pair_emit_kernel"),
+        "dense_get_collisions": (lambda: Collider(DENSE_N).get_collisions(
+            de_coords, de_radii, DENSE_CAPACITY), "pair_emit_kernel", 2)}
     good = True
-    for label, (fn, sweep_kernel) in steps.items():
-        ev, host = timed(fn)
+    for label, (fn, sweep_kernel, *per_step) in steps.items():
+        ev, host = timed(fn, reps=3 if label.startswith("dense") else 10)
         emit("step", name=label, event_ms=ev, host_enqueue_ms=host)
-        good &= profile_step(label, fn, STEPS, ev, out_dir, sweep_kernel)
+        good &= profile_step(label, fn, STEPS, ev, out_dir, sweep_kernel,
+                             *per_step)
     return 0 if good else 1
 
 

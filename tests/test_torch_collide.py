@@ -13,7 +13,6 @@ import torch
 import collision_tpu
 from collision_tpu import collider as jcollider
 from collision_tpu_torch import collide, collider
-from collision_tpu_torch.fill import BIG_FILL_THRESHOLD
 from collision_tpu_torch.hetero import default_nb
 from collision_tpu_torch.testing import (brute_force_collisions, kdtree_collisions,
                                         pair_array_to_set)
@@ -82,11 +81,11 @@ def test_collide_single_sphere():
 @pytest.mark.parametrize("kwargs", [
     {"method": "bvh"},
     {"dtype": torch.float64},
-    {"capacity": BIG_FILL_THRESHOLD + 1},
+    {"method": "hetero", "n": 64},   # JAX runs its run-expansion fill here
     {"method": "grid"},
 ])
 def test_collide_unported_paths_raise(kwargs):
-    coords, radii = _scene(100, 0.05, 0)
+    coords, radii = _scene(kwargs.get("n", 100), 0.05, 0)
     dtype = kwargs.get("dtype", torch.float32)
     with pytest.raises(NotImplementedError):
         collide(torch.from_numpy(coords).to(dtype), torch.from_numpy(radii).to(dtype),

@@ -1,5 +1,6 @@
 """The CUDA kernels of collision_tpu_torch against their plain PyTorch
-versions, and ``collide`` on the card against ``collide`` on the CPU.
+versions, and ``collide`` and ``Collider`` on the card against the same
+calls on the CPU.
 
 Needs an NVIDIA GPU and the CUDA toolkit: every test skips without a
 card. Imports no JAX, so it runs on a machine that has none:
@@ -11,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from collision_tpu_torch import collide, columns, hetero, slabs
-from collision_tpu_torch.kernels import _build, bigpass, compact, slab_sweep, sweep
+from collision_tpu_torch import (Collider, collide, collide_exact, columns, fill,
+                                 hetero, slabs)
+from collision_tpu_torch.kernels import (_build, bigpass, compact, pair_emit,
+                                         slab_sweep, sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +189,67 @@ def test_hetero_on_card_matches_cpu(cuda, engine, rpw):
     ref = collide(coords, radii, 4096, method="hetero")
     assert bool(res.ok) == bool(ref.ok)
     assert torch.equal(res.pairs.cpu(), ref.pairs)
+
+
+def _emit_inputs(engine, device):
+    """(B, wstart_tab, cb_tab, ids) of the windows-past-128-lanes scene
+    at the rows-per-window rung its windows need: aligned column rows or
+    rolled slab rows. ``ids`` stops at the last sphere, without the
+    stream's pad lanes."""
+    coords, radii = _scene(900, 0.12, 17)
+    if engine == "column":
+        plan = columns.plan_columns(coords.to(device), radii.to(device),
+                                    *columns.default_column_config(900, gxy=2))
+        rpw = int(plan.rows_needed)
+        B = sweep.sweep_masks(plan, rpw)
+    else:
+        plan = slabs.plan_slabs(coords.to(device), radii.to(device),
+                                *slabs.default_slab_config(900, gx=2))
+        rpw = int(plan.rows_rolled)
+        B = slab_sweep.slab_sweep_masks(plan, rpw)
+    ws, cb = fill._emit_tables(B, plan.starts.long(), plan.w0.reshape(-1).long(),
+                               plan.mc, 5 if engine == "column" else 2, rpw,
+                               rolled=engine == "slab")
+    return B, ws, cb, fill._sorted_ids(plan)[:900]
+
+
+@pytest.mark.parametrize("engine", ["column", "slab"])
+def test_pair_emit_kernel_matches_plain(cuda, engine):
+    B, ws, cb, ids = _emit_inputs(engine, cuda)
+    if engine == "slab":
+        # The last windows' rows run past the end of the stream.
+        assert int(ws.max()) + 128 > ids.numel()
+    rp = pair_emit.row_popcounts(B)
+    cum = torch.cumsum(rp, 0)
+    total = int(cum[-1])
+    row = int(torch.nonzero(rp > 1)[len(rp) // 100])
+    capacities = (total + 100,           # room for every pair
+                  int(cum[row]) - 1,     # a cut inside one row
+                  int(cum[row - 1]))     # rows from `row` on start past it
+    before = _build.LAUNCHES["pair_emit"]
+    for capacity in capacities:
+        got = pair_emit.emit_pairs(B, ws, cb, ids, capacity)
+        want = pair_emit.emit_pairs_plain(B, ws, cb, ids, capacity)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.LAUNCHES["pair_emit"] == before + len(capacities)
+
+
+def test_collider_on_card_matches_cpu(cuda):
+    # Mixed radii on the column engine: the first step is not ok, and the
+    # hetero retry ladder runs.
+    rng = np.random.RandomState(0)
+    coords = rng.random((1500, 3)).astype("float32")
+    radii = (0.004 * (1 + rng.pareto(1.2, 1500))).clip(0, 0.35).astype("float32")
+    for capacity in (0, 8192):
+        want = Collider(1500, method="column", device="cpu").get_collisions(
+            coords, radii, capacity)
+        got = Collider(1500, method="column").get_collisions(
+            coords, radii, capacity)
+        if capacity:
+            assert torch.equal(got[1].cpu(), want[1])
+            got, want = got[0], want[0]
+        assert int(got) == int(want) > 0
+    res = collide_exact(torch.from_numpy(coords).to(cuda),
+                        torch.from_numpy(radii).to(cuda), fill.BIG_FILL_THRESHOLD + 8,
+                        method="column")
+    assert bool(res.ok) and res.pairs.is_cuda and int(res.count) == int(want)

@@ -15,8 +15,8 @@ from collision_tpu.kernels import sweep as jsweep
 from collision_tpu.ops import offset as joffset
 from collision_tpu.ops import reduce as jreduce
 from collision_tpu.ops import scan as jscan
-from collision_tpu_torch import columns, fill, slabs
-from collision_tpu_torch.kernels import sweep
+from collision_tpu_torch import columns, slabs
+from collision_tpu_torch.kernels import pair_emit, sweep
 from collision_tpu_torch.ops import inclusive_scan, scene_bounds, sorted_bucket_starts
 
 
@@ -107,9 +107,9 @@ def test_popcount_and_select_bit():
         [0, 1, 2 ** 31, 2 ** 32 - 1]]).astype(np.uint32)
     pc = np.asarray(jax.lax.population_count(jnp.asarray(words)))
     tw = torch.from_numpy(words.astype(np.int64))
-    np.testing.assert_array_equal(fill._popcount(tw).numpy(), pc)
+    np.testing.assert_array_equal(pair_emit.popcount(tw).numpy(), pc)
     rank = (rng.randint(0, 64, words.size) % np.maximum(pc, 1)).astype(np.int32)
-    got = fill._select_bit(tw, torch.from_numpy(rank.astype(np.int64)))
+    got = pair_emit.select_bit(tw, torch.from_numpy(rank.astype(np.int64)))
     want = jfill._select_bit(jnp.asarray(words), jnp.asarray(rank))
     live = pc > 0
     np.testing.assert_array_equal(got.numpy()[live], np.asarray(want)[live])
