@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from collision_tpu_torch/csrc and drives the
-port's three engines through ``collide``, and the reference's API
+port's four engines through ``collide``, and the reference's API
 through ``Collider`` and ``collide_exact``, on uniform spheres from seed
 4, radii U(0, 1/sqrt(n)), as in bench.py, on two mixed-radii scenes and
 on the reference's dense scene:
@@ -37,7 +37,16 @@ on the reference's dense scene:
    the independent count-only call, for strict overlap, self pairs and
    repeats on the card, and bit for bit against the plain path;
 7. ``collide_exact`` at 65536 spheres of the same radii and capacity 2^23
-   (``dense_oracle``), against the k-d tree oracle.
+   (``dense_oracle``), against the k-d tree oracle;
+8. the grid engine (``grid``) on the 1M uniform scene at its default
+   (grid_dim 24, cell_capacity 120): a count (``batched_count``, which
+   launches the one-cell-per-block count kernel) and a 16384-capacity fill
+   (tile counts, scan, hit tiles, emission) against the oracle and the
+   plain path; the count at an odd grid_dim 25 (the halo count, the same
+   kernel); the halo emission (``grid_fill`` under the halo's name)
+   against the split fill at 16384 and 1024; a cell overflow (cell_capacity 64) reported as ok=False; and
+   ``Collider(65536, method="grid")`` on the dense oracle's scene, whose
+   grid attempt overflows and whose retry must return the oracle count.
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after. Each
@@ -49,7 +58,9 @@ the larger of the bytes it must move (inputs read once, outputs written
 once) at the H100's 3.35 TB/s and its box tests (six float compares
 each, counted from this run's window and chunk tables) at 67 TFLOP/s
 float32; the pair emission's bytes are the mask words read once and two
-uint32 ids written per pair.
+uint32 ids written per pair. The grid kernels' tests are the live ones:
+occ(a) * occ(b) for each tile, occ * (occ - 1) / 2 for a self tile, with
+occ a cell's filled slots.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -114,6 +125,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: Float compares per box test.
 BOX_COMPARES = 6
+#: The grid engine's default (grid_dim, cell_capacity) at N, the odd
+#: grid_dim its halo count takes, and a cell capacity below N's occupancy.
+GRID_CONFIG = (24, 120)
+GRID_ODD = 25
+GRID_OVERFLOW_CAPACITY = 64
+GRID_KERNELS = ("batched_count", "grid_tile_counts", "compact_mask",
+                "grid_emit")
 
 FAILURES = []
 
@@ -158,13 +176,16 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
-    from collision_tpu_torch.kernels import (bigpass, compact, pair_emit,
-                                             slab_sweep, sweep)
+    from collision_tpu_torch.kernels import (batched, bigpass, compact, emit,
+                                             halo, pair_emit, slab_sweep,
+                                             sweep)
 
     swaps = [(slab_sweep, "slab_count"), (slab_sweep, "slab_masks"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
-             (bigpass, "big_pairs"), (pair_emit, "emit_pairs")]
+             (bigpass, "big_pairs"), (pair_emit, "emit_pairs"),
+             (halo, "halo_pairs"), (batched, "batched_count"),
+             (emit, "halo_tile_counts"), (emit, "emit_pairs")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -481,7 +502,8 @@ def dense_fill(dev, record, launches):
 
 def dense_oracle(dev):
     """``collide_exact`` on ORACLE_N spheres of the dense radii, above the
-    emission threshold, against the k-d tree oracle."""
+    emission threshold, against the k-d tree oracle. Returns the scene on
+    the card and the oracle's pairs."""
     from collision_tpu_torch import collide_exact
     from collision_tpu_torch.testing import kdtree_collisions
 
@@ -499,6 +521,153 @@ def dense_oracle(dev):
           capacity=ORACLE_CAPACITY, pairs=len(expected),
           count=int(res.count), ok=bool(res.ok), launches=run,
           oracle_seconds=oracle_s, seconds=time.perf_counter() - t0)
+    return coords, radii, expected
+
+
+def grid_tile_work(bins, gd):
+    """(tests, rows), int64[gd^2, tile_pad] in ``halo_tile_counts``'
+    layout: each grid tile's live box tests, occ(a) * occ(b) or occ *
+    (occ - 1) / 2 for the self tile, and the filled rows of its cells,
+    occ(a) + occ(b) or occ, with occ a cell's filled slots."""
+    import torch
+    from collision_tpu_torch import grid
+    from collision_tpu_torch.kernels import emit
+
+    occ = torch.isfinite(bins[..., 0]).sum(-1)
+    c = occ[1:-1, 1:-1, 1:-1]
+    nbs = [occ[1 + dx:1 + dx + gd, 1 + dy:1 + dy + gd, 1 + dz:1 + dz + gd]
+           for dx, dy, dz in grid._HALF_OFFSETS]
+
+    def layout(per):
+        out = torch.zeros((gd * gd, emit.tile_pad(gd)), dtype=torch.int64,
+                          device=bins.device)
+        out[:, :14 * gd] = torch.stack(per, -1).reshape(gd * gd, 14 * gd)
+        return out
+
+    return (layout([c * (c - 1) // 2] + [c * b for b in nbs]),
+            layout([c] + [c + b for b in nbs]))
+
+
+def grid_path(dev, record, launches, coords, radii, expected, dense):
+    """The grid engine at N spheres: launches, oracle and plain path of
+    its count and fill, the odd-grid count, the halo emission against the
+    split fill, the overflow and the Collider's retry on the dense oracle
+    scene (``dense``: coords, radii, oracle pairs), the four kernels'
+    records and the step times."""
+    import torch
+    from collision_tpu_torch import Collider, collide, grid
+    from collision_tpu_torch.kernels import batched, emit, halo
+
+    t0 = time.perf_counter()
+    gd, mc = GRID_CONFIG
+    (res_count, res_fill), run = counted(lambda: (
+        collide(coords, radii, 0, method="grid"),
+        collide(coords, radii, CAPACITY, method="grid")))
+    for kernel, ran in run.items():
+        check((ran > 0) == (kernel in GRID_KERNELS),
+              f"grid: {kernel} launched {ran}x")
+    check_count(res_count, expected, "grid")
+    check_fill(res_fill, expected, "grid")
+    with plain_kernels():
+        plain_count = collide(coords, radii, 0, method="grid")
+        plain_fill = collide(coords, radii, CAPACITY, method="grid")
+    check(int(plain_count.count) == int(res_count.count)
+          and bool(plain_count.ok), "grid count == plain path's count")
+    check(torch.equal(plain_fill.pairs, res_fill.pairs),
+          "grid fill pairs == plain path's pairs, bit for bit")
+    for name in GRID_KERNELS[:2] + GRID_KERNELS[3:]:
+        launches[name] = run[name]
+
+    odd, odd_run = counted(lambda: collide(
+        coords, radii, 0, method="grid", grid_dim=GRID_ODD, cell_capacity=mc))
+    check(odd_run["halo_count"] == 1 and odd_run["batched_count"] == 0,
+          f"grid_dim {GRID_ODD}: halo_count launched {odd_run['halo_count']}x")
+    check_count(odd, expected, f"grid_dim {GRID_ODD}")
+    launches["halo_count"] = odd_run["halo_count"]
+
+    bins = grid.build_grid(coords, radii, gd, mc)[0]
+    for capacity in (CAPACITY, TRUNC_CAPACITY):
+        hp, hp_total = halo.halo_pairs(bins, gd, mc, capacity)
+        gf, gf_total = emit.grid_fill(bins, gd, mc, capacity)
+        check(torch.equal(hp, gf) and int(hp_total) == int(gf_total)
+              == len(expected),
+              f"halo_pairs capacity {capacity} == grid_fill, true total")
+    over = collide(coords, radii, 0, method="grid",
+                   cell_capacity=GRID_OVERFLOW_CAPACITY)
+    check(not bool(over.ok),
+          f"grid cell_capacity {GRID_OVERFLOW_CAPACITY}: ok=False")
+    d_coords, d_radii, d_expected = dense
+    d_first = collide(d_coords, d_radii, 0, method="grid")
+    d_count, d_run = counted(lambda: Collider(
+        ORACLE_N, method="grid").get_collisions(d_coords, d_radii, 0,
+                                                collisions=None))
+    check(not bool(d_first.ok) and int(d_count) == len(d_expected),
+          f"Collider(method='grid') n={ORACLE_N}: grid attempt not ok, retry "
+          f"count {int(d_count)} == oracle")
+
+    # --- the four kernels against their plain versions at N's bins ---
+    bins_odd = grid.build_grid(coords, radii, GRID_ODD, mc)[0]
+    tests, rows = grid_tile_work(bins, gd)
+    tests_odd = int(grid_tile_work(bins_odd, GRID_ODD)[0].sum())
+    record("halo_count", "collision_tpu_torch/csrc/grid.cu",
+           "collision_tpu/kernels/halo.py:39",
+           abs(int(halo.halo_pairs(bins_odd, GRID_ODD, mc, 0)[1])
+               - int(halo.halo_pairs_plain(bins_odd, GRID_ODD, mc, 0)[1])),
+           lambda: halo.halo_pairs(bins_odd, GRID_ODD, mc, 0),
+           lambda: halo.halo_pairs_plain(bins_odd, GRID_ODD, mc, 0),
+           nbytes(bins_odd) + 8, tests_odd, plain_batch=2)
+    record("batched_count", "collision_tpu_torch/csrc/grid.cu",
+           "collision_tpu/kernels/batched.py:23",
+           abs(int(batched.batched_count(bins, gd, mc))
+               - int(batched.batched_count_plain(bins, gd, mc))),
+           lambda: batched.batched_count(bins, gd, mc),
+           lambda: batched.batched_count_plain(bins, gd, mc),
+           nbytes(bins) + 8, int(tests.sum()), plain_batch=2)
+    tc = emit.halo_tile_counts(bins, gd, mc)
+    record("grid_tile_counts", "collision_tpu_torch/csrc/grid.cu",
+           "collision_tpu/kernels/emit.py:55",
+           max_abs_err(tc, emit.halo_tile_counts_plain(bins, gd, mc)),
+           lambda: emit.halo_tile_counts(bins, gd, mc),
+           lambda: emit.halo_tile_counts_plain(bins, gd, mc),
+           nbytes(bins, tc), int(tests.sum()), plain_batch=2)
+    flat = tc.reshape(-1)
+    tiles = torch.nonzero(flat).flatten()
+    bases = (torch.cumsum(flat, 0) - flat)[tiles]
+    args = (bins, tiles, bases, gd, mc, CAPACITY)
+    got = emit.emit_pairs(*args)
+    check(torch.equal(got, res_fill.pairs), "emit_pairs == the grid fill")
+    # Bytes: the hit tiles' filled rows (32 bytes each), the tile table,
+    # and the [CAPACITY, 2] uint32 buffer written once.
+    record("grid_emit", "collision_tpu_torch/csrc/grid.cu",
+           "collision_tpu/kernels/emit.py:135",
+           max_abs_err(got, emit.emit_pairs_plain(*args)),
+           lambda: emit.emit_pairs(*args),
+           lambda: emit.emit_pairs_plain(*args),
+           32 * int(rows.reshape(-1)[tiles].sum()) + nbytes(tiles, bases)
+           + 8 * CAPACITY, int(tests.reshape(-1)[tiles].sum()),
+           plain_batch=1, plain_reps=3)
+
+    # halo_pairs' count on the default bins: the kernel batched_count
+    # launches, through the other wrapper.
+    steps = {"halo_count_gd24_ms": time_ms(
+        lambda: halo.halo_pairs(bins, gd, mc, 0), batch=KERNEL_BATCH)}
+    for label, capacity in (("count_step", 0), ("fill_step", CAPACITY)):
+        steps[label + "_ms"] = time_ms(
+            lambda: collide(coords, radii, capacity, method="grid"))
+        with plain_kernels():
+            steps[label + "_plain_ms"] = time_ms(
+                lambda: collide(coords, radii, capacity, method="grid"),
+                reps=5)
+    phase("grid", n=N, grid_dim=gd, cell_capacity=mc,
+          count=int(res_count.count), ok=bool(res_count.ok),
+          fill_total=int(res_fill.count), fill_ok=bool(res_fill.ok),
+          launches=run, odd_launches=odd_run, live_tests=int(tests.sum()),
+          live_tests_odd=tests_odd, hit_tiles=tiles.numel(),
+          hit_tile_tests=int(tests.reshape(-1)[tiles].sum()),
+          max_occupancy=int(torch.isfinite(bins[..., 0]).sum(-1).max()),
+          overflow_ok=bool(over.ok), dense_first_ok=bool(d_first.ok),
+          dense_count=int(d_count), dense_launches=d_run, **steps,
+          seconds=time.perf_counter() - t0)
 
 
 def counted(fn):
@@ -813,7 +982,8 @@ def main():
         + [(name, lambda c=c, r=r: collide(c, r, BIG_CAPACITY),
             hetero_fills[name]) for name, (c, r) in hetero_scenes.items()])
     dense_fill(dev, record, launches)
-    dense_oracle(dev)
+    grid_path(dev, record, launches, coords, radii, expected,
+              dense_oracle(dev))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of collision_tpu's slab, column and hetero engines.
+"""PyTorch + CUDA port of collision_tpu's slab, column, hetero and grid
+engines.
 
 The port keeps the JAX package's names and contracts: ``collide`` returns
 the exact set of strictly-overlapping sphere-AABB pairs of original ids,
@@ -9,7 +10,9 @@ on a CUDA tensor every kernel of the path is a hand-written sm_90a kernel
 PyTorch version runs instead.
 
 Ported: ``method="slab"``, ``"column"``, ``"hetero"`` (mixed radii: the
-largest spheres parked out of the small pass) and ``"auto"`` (the
+largest spheres parked out of the small pass), ``"grid"`` (the dense
+uniform-grid stencil, with ``build_grid`` and ``grid_count``) and
+``"auto"`` (the
 default: the hetero engine on scenes its radius probe finds
 heterogeneous, else slab or column by n), for float32 count-only steps
 and fills at any capacity; and the reference's ``Collider`` API
@@ -19,5 +22,7 @@ it is given ``device="cpu"``.
 """
 
 from .collider import Collider, CollisionResult, collide, collide_exact
+from .grid import GridCounts, build_grid, grid_count
 
-__all__ = ["Collider", "CollisionResult", "collide", "collide_exact"]
+__all__ = ["Collider", "CollisionResult", "GridCounts", "build_grid",
+           "collide", "collide_exact", "grid_count"]

@@ -23,7 +23,9 @@ import torch
 
 from .columns import CHUNK, _f32, default_column_config, plan_columns
 from .fill import mask_fill, slab_mask_fill
+from .grid import build_grid
 from .hetero import _big_indices, default_nb, hetero_collide
+from .kernels import batched, emit, halo
 from .kernels.slab_sweep import slab_count_dual
 from .kernels.sweep import RPW_LADDER, sweep_count_guarded
 from .ops import scene_bounds
@@ -62,8 +64,8 @@ HETERO_GAIN_MIN = 2.0
 #: never changes a result, and it narrows the windows.
 RPW_RETRY_MAX = 48
 
-_PORTED = ("auto", "slab", "column", "hetero")
-_UNPORTED = ("grid", "bvh")
+_PORTED = ("auto", "slab", "column", "hetero", "grid")
+_UNPORTED = ("bvh",)
 
 
 class CollisionResult(NamedTuple):
@@ -97,9 +99,28 @@ class CollisionResult(NamedTuple):
         return bool(self.count > self.pairs.shape[0])
 
 
+def default_grid_config(n, target_occupancy=72):
+    """(grid_dim, cell_capacity) for ~``target_occupancy`` spheres per cell,
+    the JAX package's sizing copied unchanged (tuned there on a TPU; the
+    H100's own optimum is not measured). Capacity is sized ~5 Poisson
+    sigmas above the mean occupancy so uniform scenes don't trip the
+    overflow retry.
+    """
+    gd = int(min(max(round((n / target_occupancy) ** (1 / 3)), 4), 64))
+    occ = n / gd ** 3
+    mc = int(round_up(int(occ + 5 * occ ** 0.5 + 4), 8))
+    mc = max(16, min(mc, max(16, round_up(n, 8))))
+    return gd, mc
+
+
+def default_grid_dim(n, target_occupancy=72):
+    """Cells per axis for ~``target_occupancy`` spheres per cell."""
+    return default_grid_config(n, target_occupancy)[0]
+
+
 def collide(coords, radii, capacity, method="auto", gxy=None,
             col_capacity=None, slab_rows=None, rpw=DEFAULT_RPW, gx=None,
-            nb=None):
+            nb=None, grid_dim=None, cell_capacity=None):
     """One broad-phase step on the device of ``coords``.
 
     Args:
@@ -113,7 +134,8 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         "hetero" (the ``nb`` largest spheres parked out of the small
         pass, hetero.py: the S-S pass on the slab engine at n >=
         ``HETERO_SLAB_MIN`` unless column knobs are given, on the column
-        engine otherwise; needs n > 64), or "auto": at n >=
+        engine otherwise; needs n > 64), "grid" (the dense uniform-grid
+        stencil, grid.py; never chosen by "auto"), or "auto": at n >=
         ``HETERO_AUTO_MIN`` it first probes the radius spread, one host
         sync per call, and sends a scene it finds heterogeneous to the
         hetero engine, with the S-S engine and its knobs sized from the
@@ -129,6 +151,8 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         (``slabs.default_slab_config``).
       nb: big-set size of the hetero engine; None is
         ``hetero.default_nb(n)``.
+      grid_dim, cell_capacity: grid-engine knobs (cells per axis, slots
+        per cell); a None resolves from ``default_grid_config(n)``.
 
     Returns:
       :class:`CollisionResult`.
@@ -179,6 +203,12 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         zero = torch.zeros((), dtype=torch.int64, device=coords.device)
         ok = torch.ones((), dtype=torch.bool, device=coords.device)
         return CollisionResult(zero, pairs, lo_scene, hi_scene, ok)
+    if method == "grid":
+        auto_gd, auto_mc = default_grid_config(n)
+        return _grid_collide(
+            coords, radii, capacity, auto_gd if grid_dim is None else grid_dim,
+            auto_mc if cell_capacity is None else cell_capacity, lo_scene,
+            hi_scene)
     if method == "slab":
         s_gx, s_cap, s_rows = default_slab_config(n, gx=gx)
         return _slab_collide(coords, radii, capacity, s_gx, s_cap, s_rows,
@@ -242,6 +272,24 @@ def _hetero_collide(coords, radii, capacity, nb, rpw, gxy, col_capacity,
         pairs, total, ok = hetero_collide(
             coords, radii, capacity, nb=nb, gxy=gxy,
             col_capacity=col_capacity, slab_rows=slab_rows, rpw=rpw)
+    return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
+
+
+def _grid_collide(coords, radii, capacity, grid_dim, cell_capacity,
+                  lo_scene, hi_scene):
+    """Grid-engine frame: the dense bins, then the count or the split
+    fill (tile counts, scan, hit tiles, emission). ``ok`` is the bins'.
+    The count takes ``batched_count`` at an even ``grid_dim`` and the halo
+    count otherwise, as the JAX engine routes; on the card both launch the
+    one-cell-per-block count kernel."""
+    bins, ok, _ = build_grid(coords, radii, grid_dim, cell_capacity)
+    if capacity == 0:
+        if grid_dim % 2 == 0:
+            total = batched.batched_count(bins, grid_dim, cell_capacity)
+        else:
+            _, total = halo.halo_pairs(bins, grid_dim, cell_capacity, 0)
+        return CollisionResult(total, None, lo_scene, hi_scene, ok)
+    pairs, total = emit.grid_fill(bins, grid_dim, cell_capacity, capacity)
     return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
 
 

@@ -30,7 +30,8 @@ _LIB = _BUILD_DIR / "libcollision_kernels.so"
 LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_count_rolled": 0, "sweep_count_aligned": 0,
             "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
-            "pair_emit": 0}
+            "pair_emit": 0, "halo_count": 0, "batched_count": 0,
+            "grid_tile_counts": 0, "grid_emit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +57,10 @@ _ARGTYPES = {
     # mask, wstart, cb, ids, nsort, bases, rows, capacity, ida, idb,
     # cuda stream
     "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _P],
+    # bins, gd, M, tile counts, tile_pad, total, cuda stream
+    "grid_count_launch": [_P, _I, _I, _P, _I, _P, _P],
+    # bins, gd, M, tile_pad, tiles, bases, h, capacity, pairs, cuda stream
+    "grid_emit_launch": [_P, _I, _I, _I, _P, _P, _L, _L, _P, _P],
 }
 
 

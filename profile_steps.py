@@ -1,10 +1,11 @@
 """Device profile of collision_tpu_torch's count and fill steps on one
-NVIDIA GPU, for the slab, the column and the hetero engine.
+NVIDIA GPU, for the slab, the column, the hetero and the grid engine.
 
     python3 profile_steps.py [--out DIR]
 
 The scenes are chip_smoke.py's, 1M spheres from seed 4: uniform, radii
-U(0, 1/sqrt(n)), each engine's default config; and the two mixed-radii
+U(0, 1/sqrt(n)), each engine's default config (the grid engine's: 24
+cells a side, 120 slots a cell); and the two mixed-radii
 scenes that ``auto`` sends to the hetero engine (power-law radii, whose
 S-S pass runs on the column engine, and 512 giants among uniform radii,
 whose S-S pass runs on the slab engine), count and a fill with room for
@@ -13,14 +14,15 @@ U(0, 0.06), 107,651,273 pairs), its exact column attempt and the whole
 ``Collider.get_collisions`` call with its retry. Prints one JSON line per
 reading:
 
-- ``stage``: each stage of a step (plan, sweep kernel, residual jobs,
-  fill), median of 10 samples after warm-up: CUDA-event ms around one
-  call, and host enqueue ms (the call returning, before the sync).
+- ``stage``: each stage of a step (plan or bins, sweep or grid count
+  kernel, residual jobs, fill), median of 10 samples after warm-up:
+  CUDA-event ms around one call, and host enqueue ms (the call
+  returning, before the sync).
 - ``step``: unprofiled median ms of the whole count and fill steps of
   each engine (``count``, ``fill``: slab; ``column_count``,
-  ``column_fill``: column; ``hetero_powerlaw_*``, ``hetero_giants_*``:
-  ``auto`` on the mixed-radii scenes; ``dense_exact_fill``,
-  ``dense_get_collisions``).
+  ``column_fill``: column; ``grid_count``, ``grid_fill``: grid;
+  ``hetero_powerlaw_*``, ``hetero_giants_*``: ``auto`` on the mixed-radii
+  scenes; ``dense_exact_fill``, ``dense_get_collisions``).
 - ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
   Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
   read back. Device ops per step (kernel, memset and memcpy events),
@@ -60,7 +62,7 @@ KERNELS = re.compile(
     r"::(slab_count_kernel<[01]>|slab_masks_kernel<[01]>|"
     r"column_count_kernel<(?:true|false)>|column_masks_kernel|count_kernel|"
     r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel|"
-    r"pair_emit_kernel)\(")
+    r"pair_emit_kernel|grid_count_kernel|grid_emit_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -174,8 +176,10 @@ def main():
     from chip_smoke import (DENSE_CAPACITY, DENSE_N, DENSE_R, DENSE_ROUTE,
                             HETERO_CAPACITY, giants_scene, powerlaw_scene,
                             uniform_scene)
-    from collision_tpu_torch import Collider, collide, columns, fill, slabs
-    from collision_tpu_torch.kernels import slab_sweep, sweep
+    from collision_tpu_torch import Collider, collide, columns, fill, grid, slabs
+    from collision_tpu_torch.collider import default_grid_config
+    from collision_tpu_torch.kernels import batched, slab_sweep, sweep
+    from collision_tpu_torch.kernels import emit as grid_emit
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
@@ -187,6 +191,8 @@ def main():
     args4 = (plan.stream, plan.starts, plan.w0, plan.wcap)
     ccfg = columns.default_column_config(N)
     cplan = columns.plan_columns(coords, radii, *ccfg)
+    gcfg = default_grid_config(N)
+    gbins = grid.build_grid(coords, radii, *gcfg)[0]
 
     stages = {
         "plan_slabs": lambda: slabs.plan_slabs(coords, radii, gx, cap, rows),
@@ -199,6 +205,11 @@ def main():
         "column_count_kernel": lambda: sweep.sweep_count(cplan, 2, True),
         "column_masks_kernel": lambda: sweep.sweep_masks(cplan, 2),
         "mask_fill": lambda: fill.mask_fill(coords, radii, CAPACITY, *ccfg),
+        "build_grid": lambda: grid.build_grid(coords, radii, *gcfg),
+        "grid_batched_count_kernel": lambda: batched.batched_count(gbins, *gcfg),
+        "grid_tile_counts_kernel": lambda: grid_emit.halo_tile_counts(gbins, *gcfg),
+        "grid_fill_from_bins": lambda: grid_emit.grid_fill(gbins, *gcfg,
+                                                             CAPACITY),
     }
     for name, fn in stages.items():
         ev, host = timed(fn)
@@ -217,6 +228,10 @@ def main():
         "column_fill": (lambda: collide(coords, radii, CAPACITY,
                                         method="column"),
                         "column_masks_kernel"),
+        "grid_count": (lambda: collide(coords, radii, 0, method="grid"),
+                       "grid_count_kernel"),
+        "grid_fill": (lambda: collide(coords, radii, CAPACITY, method="grid"),
+                      "grid_emit_kernel"),
         "hetero_powerlaw_count": (lambda: collide(pl_coords, pl_radii, 0),
                                   "big_count_kernel"),
         "hetero_powerlaw_fill": (lambda: collide(pl_coords, pl_radii,

@@ -82,7 +82,7 @@ def test_collide_single_sphere():
     {"method": "bvh"},
     {"dtype": torch.float64},
     {"method": "hetero", "n": 64},   # JAX runs its run-expansion fill here
-    {"method": "grid"},
+    {"method": "grid", "dtype": torch.float64, "capacity": 16},
 ])
 def test_collide_unported_paths_raise(kwargs):
     coords, radii = _scene(kwargs.get("n", 100), 0.05, 0)

@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from collision_tpu_torch import (Collider, collide, collide_exact, columns, fill,
-                                 hetero, slabs)
-from collision_tpu_torch.kernels import (_build, bigpass, compact, pair_emit,
-                                         slab_sweep, sweep)
+                                 grid, hetero, slabs)
+from collision_tpu_torch.kernels import (_build, batched, bigpass, compact, emit,
+                                         halo, pair_emit, slab_sweep, sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +253,80 @@ def test_collider_on_card_matches_cpu(cuda):
                         torch.from_numpy(radii).to(cuda), fill.BIG_FILL_THRESHOLD + 8,
                         method="column")
     assert bool(res.ok) and res.pairs.is_cuda and int(res.count) == int(want)
+
+
+GRID_SCENES = [
+    # n, radius scale (radii U(0, scale/sqrt(n))), grid_dim, cell_capacity
+    (3000, 1.5, 6, 48),
+    (3000, 1.5, 5, 64),      # odd grid_dim: no batched count
+    (2400, 1.5, 2, 400),     # ~300 spheres a cell: three 128-row chunks
+]
+
+
+def _grid_scene(n, rscale):
+    return _scene(n, rscale / np.sqrt(n), n)
+
+
+@pytest.mark.parametrize("scene", GRID_SCENES)
+def test_grid_kernels_match_plain(cuda, scene):
+    n, rscale, gd, mc = scene
+    coords, radii = _grid_scene(n, rscale)
+    bins, ok, _ = grid.build_grid(coords.to(cuda), radii.to(cuda), gd, mc)
+    assert bool(ok)
+    before = dict(_build.LAUNCHES)
+    tc = emit.halo_tile_counts(bins, gd, mc)
+    assert torch.equal(tc, emit.halo_tile_counts_plain(bins, gd, mc))
+    flat = tc.reshape(-1)
+    total = int(flat.sum())
+    assert total > 0
+    _, count = halo.halo_pairs(bins, gd, mc, 0)
+    assert int(count) == total == int(halo.halo_pairs_plain(bins, gd, mc, 0)[1])
+    if gd % 2 == 0:
+        assert int(batched.batched_count(bins, gd, mc)) == total \
+            == int(batched.batched_count_plain(bins, gd, mc))
+    # A cut inside the first tile with two pairs or more, and one slot.
+    t = int(torch.nonzero(flat >= 2)[0])
+    cut = int(flat[:t].sum()) + 1
+    bases = torch.cumsum(flat, 0) - flat
+    tiles = torch.nonzero(flat).flatten()
+    for capacity in (total + 100, cut, 1):
+        want, want_total = halo.halo_pairs_plain(bins, gd, mc, capacity)
+        got, got_total = halo.halo_pairs(bins, gd, mc, capacity)
+        assert torch.equal(got, want) and int(got_total) == int(want_total) == total
+        fill, fill_total = emit.grid_fill(bins, gd, mc, capacity)
+        assert torch.equal(fill, want) and int(fill_total) == total
+        args = (bins, tiles, bases[tiles], gd, mc, capacity)
+        assert torch.equal(emit.emit_pairs(*args), emit.emit_pairs_plain(*args))
+    assert bool((want != 0xFFFFFFFF).all())    # the one slot is written
+    # halo_pairs with a capacity is grid_fill: tile counts, hit tiles, emission.
+    runs = {"grid_tile_counts": 7, "halo_count": 1, "grid_emit": 9,
+            "compact_mask": 6, "batched_count": int(gd % 2 == 0)}
+    for name, k in runs.items():
+        assert _build.LAUNCHES[name] == before[name] + k, name
+
+
+@pytest.mark.parametrize("knobs", [{}, {"grid_dim": 5, "cell_capacity": 64},
+                                   {"cell_capacity": 16}])
+def test_grid_collide_on_card_matches_cpu(cuda, knobs):
+    coords, radii = _grid_scene(3000, 1.5)
+    for capacity in (0, 4096, 100):
+        want = collide(coords, radii, capacity, method="grid", **knobs)
+        got = collide(coords.to(cuda), radii.to(cuda), capacity, method="grid",
+                      **knobs)
+        assert bool(got.ok) == bool(want.ok) == ("cell_capacity" not in knobs
+                                                 or knobs["cell_capacity"] > 16)
+        assert int(got.count) == int(want.count)
+        if capacity:
+            assert torch.equal(got.pairs.cpu(), want.pairs)
+
+
+@pytest.mark.parametrize("grid_dim", [24, 25])
+def test_build_grid_on_card_matches_cpu(cuda, grid_dim):
+    # At 1M spheres the cell size divides by grid_dim on the card: a
+    # division by a Python number there would bin by its reciprocal.
+    coords, radii = _scene(1_000_000, 1 / np.sqrt(1_000_000), 4)
+    want = grid.build_grid(coords, radii, grid_dim, 120)
+    got = grid.build_grid(coords.to(cuda), radii.to(cuda), grid_dim, 120)
+    assert bool(got[1]) == bool(want[1]) and bool(want[1])
+    assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[2].cpu(), want[2])
