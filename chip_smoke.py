@@ -46,7 +46,18 @@ on the reference's dense scene:
    kernel); the halo emission (``grid_fill`` under the halo's name)
    against the split fill at 16384 and 1024; a cell overflow (cell_capacity 64) reported as ok=False; and
    ``Collider(65536, method="grid")`` on the dense oracle's scene, whose
-   grid attempt overflows and whose retry must return the oracle count.
+   grid attempt overflows and whose retry must return the oracle count;
+9. the diagonal count (``diag``): ``slab_count_diag`` at d_max 48 on the
+   1M uniform scene's default slab plan, against the oracle with ok, and
+   on the same-z cluster (400 spheres in one z plane, d_max 16), which
+   must flag (ok=False) while ``slab_count_dual`` stays exact; timed
+   beside the dual-dispatch count;
+10. float64 (``float64``): ``collide`` count and fill (capacity 2^21) on
+   the 1M uniform scene in float64 through ``auto`` and ``"column"``
+   (the run-expansion fill, which launches no kernel), against a float64
+   k-d tree oracle, and ``Collider(1000, coord_dtype="float64")`` on 1000
+   spheres at one point, whose first step overflows the default candidate
+   bound and whose retry must return all 499,500 pairs.
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after. Each
@@ -132,6 +143,15 @@ GRID_ODD = 25
 GRID_OVERFLOW_CAPACITY = 64
 GRID_KERNELS = ("batched_count", "grid_tile_counts", "compact_mask",
                 "grid_emit")
+#: The diagonal count's span on the main path, and the same-z cluster
+#: that must flag: n, seed, radius, span.
+DIAG_D_MAX = 48
+FLAG_SCENE = (400, 28, 0.003, 16)
+#: The float64 fill's capacity, and the retry scene's size (all spheres
+#: at one point, radius F64_RETRY_R).
+F64_CAPACITY = 1 << 21
+F64_RETRY_N = 1000
+F64_RETRY_R = 0.1
 
 FAILURES = []
 
@@ -180,7 +200,8 @@ def plain_kernels():
                                              halo, pair_emit, slab_sweep,
                                              sweep)
 
-    swaps = [(slab_sweep, "slab_count"), (slab_sweep, "slab_masks"),
+    swaps = [(slab_sweep, "slab_window_count"), (slab_sweep, "slab_masks"),
+             (slab_sweep, "diag_count"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
              (bigpass, "big_pairs"), (pair_emit, "emit_pairs"),
@@ -670,6 +691,138 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
           seconds=time.perf_counter() - t0)
 
 
+def diag_path(dev, record, launches, coords, radii, expected):
+    """The diagonal count on the main path's scene: its launches, the
+    oracle, the flagging scene, the kernel's record and the step times
+    beside the dual dispatch's."""
+    import torch
+    from collision_tpu_torch import slabs
+    from collision_tpu_torch.kernels import slab_sweep
+    from collision_tpu_torch.testing import kdtree_collisions
+
+    t0 = time.perf_counter()
+    config = slabs.default_slab_config(N)
+
+    def diag_step():
+        plan = slabs.plan_slabs(coords, radii, *config)
+        return plan, slab_sweep.slab_count_diag(plan, DIAG_D_MAX)
+
+    (plan, (count, ok)), run = counted(diag_step)
+    for kernel, ran in run.items():
+        check(ran == (kernel in ("diag_count", "slab_count")),
+              f"diag: {kernel} launched {ran}x")
+    check(bool(plan.ok) and bool(ok), "diag: plan ok and count ok")
+    check(int(count) == len(expected),
+          f"diag: count {int(count)} == oracle {len(expected)}")
+
+    # The same-z cluster: partners at any sorted distance.
+    n_f, seed_f, r_f, d_f = FLAG_SCENE
+    rng = np.random.RandomState(seed_f)
+    fc_np = rng.random((n_f, 3)).astype("float32")
+    fc_np[:, 2] = 0.5
+    fr_np = np.full(n_f, r_f, "float32")
+    fplan = slabs.plan_slabs(torch.from_numpy(fc_np).to(dev),
+                             torch.from_numpy(fr_np).to(dev),
+                             *slabs.default_slab_config(n_f))
+    f_expected = kdtree_collisions(fc_np, fr_np)
+    fcount, fok = slab_sweep.slab_count_diag(fplan, d_f)
+    fflag = slab_sweep.diag_count(fplan.stream, fplan.diag_thr, d_f)[1]
+    dual, dual_ok = slab_sweep.slab_count_dual(fplan)
+    check(not bool(fok) and int(fflag) > 0
+          and int(fcount) <= len(f_expected),
+          f"diag same-z cluster: flagged {int(fflag)}, ok=False, count "
+          f"{int(fcount)} <= {len(f_expected)}")
+    check(bool(dual_ok) and int(dual) == len(f_expected),
+          f"diag same-z cluster: slab_count_dual {int(dual)} == oracle")
+
+    # The kernel against its plain version at the main path's plan.
+    dargs = (plan.stream, plan.diag_thr, DIAG_D_MAX)
+    got = slab_sweep.diag_count(*dargs)
+    want = slab_sweep.diag_count_plain(*dargs)
+    err = max(abs(int(got[0]) - int(want[0])), abs(int(got[1]) - int(want[1])))
+    launches["diag_count"] = run["diag_count"]
+    # Box tests the scene needs: each live sphere against the next
+    # DIAG_D_MAX live ones.
+    tests = N * DIAG_D_MAX - DIAG_D_MAX * (DIAG_D_MAX + 1) // 2
+    # Bytes it needs: channels 0-5 and 7 (float32) of the N live positions
+    # and the d_max + 1 after them (the id channel and the +inf pad rows
+    # are never needed), diag_thr, and the two int64 counts out.
+    moved = 7 * 4 * (N + DIAG_D_MAX + 1) + nbytes(plan.diag_thr) + 16
+    record("diag_count", "collision_tpu_torch/csrc/slab_sweep.cu",
+           "collision_tpu/kernels/slab_sweep.py:43", err,
+           lambda: slab_sweep.diag_count(*dargs),
+           lambda: slab_sweep.diag_count_plain(*dargs),
+           moved, tests, plain_batch=2)
+
+    steps = {
+        "diag_step_ms": time_ms(lambda: slab_sweep.slab_count_diag(
+            slabs.plan_slabs(coords, radii, *config), DIAG_D_MAX)),
+        "dual_step_ms": time_ms(lambda: slab_sweep.slab_count_dual(
+            slabs.plan_slabs(coords, radii, *config))),
+        "diag_count_ms": time_ms(lambda: slab_sweep.slab_count_diag(
+            plan, DIAG_D_MAX)),
+        "dual_count_ms": time_ms(lambda: slab_sweep.slab_count_dual(plan)),
+    }
+    phase("diag", n=N, d_max=DIAG_D_MAX, gx=plan.gx, count=int(count),
+          ok=bool(ok), diagonal=int(got[0]), flagged=int(got[1]),
+          launches=run, box_tests=tests, flag_scene_n=n_f,
+          flag_scene_flagged=int(fflag), flag_scene_count=int(fcount),
+          flag_scene_pairs=len(f_expected), **steps,
+          seconds=time.perf_counter() - t0)
+
+
+def float64_path(dev, coords_np, radii_np):
+    """Float64 steps at N through ``auto`` and ``"column"`` (the
+    run-expansion fill: no kernel launches), against a float64 oracle,
+    with times; and the float64 Collider's candidate retry."""
+    import torch
+    from collision_tpu_torch import Collider, collide
+    from collision_tpu_torch.testing import kdtree_collisions
+
+    t0 = time.perf_counter()
+    c64_np, r64_np = coords_np.astype("float64"), radii_np.astype("float64")
+    c64 = torch.from_numpy(c64_np).to(dev)
+    r64 = torch.from_numpy(r64_np).to(dev)
+    cases = [(m, cap) for m in ("auto", "column") for cap in (0, F64_CAPACITY)]
+    results, run = counted(lambda: [collide(c64, r64, cap, method=m)
+                                    for m, cap in cases])
+    check(not any(run.values()), f"float64: no kernel launched ({run})")
+    t1 = time.perf_counter()
+    expected = kdtree_collisions(c64_np, r64_np)
+    oracle_s = time.perf_counter() - t1
+    for (method, cap), res in zip(cases, results):
+        label = f"float64 {method} n={N}"
+        if cap:
+            check_fill(res, expected, label)
+        else:
+            check_count(res, expected, label)
+    check(torch.equal(results[1].pairs, results[3].pairs),
+          "float64: auto fill == column fill, bit for bit")
+    steps = {f"{m}_{'fill' if cap else 'count'}_ms": time_ms(
+        lambda m=m, cap=cap: collide(c64, r64, cap, method=m), reps=5)
+        for m, cap in cases}
+
+    coords0 = np.zeros((F64_RETRY_N, 3))
+    radii0 = np.full(F64_RETRY_N, F64_RETRY_R)
+    first = collide(torch.from_numpy(coords0).to(dev),
+                    torch.from_numpy(radii0).to(dev), F64_RETRY_N)
+    count, pairs = Collider(F64_RETRY_N, coord_dtype="float64").get_collisions(
+        coords0, radii0, F64_RETRY_N)
+    cpu = Collider(F64_RETRY_N, coord_dtype="float64",
+                   device="cpu").get_collisions(coords0, radii0, F64_RETRY_N)
+    all_pairs = F64_RETRY_N * (F64_RETRY_N - 1) // 2
+    check(not bool(first.ok) and int(count) == all_pairs,
+          f"float64 Collider({F64_RETRY_N}): first step not ok, retry count "
+          f"{int(count)} == {all_pairs}")
+    check(torch.equal(pairs.cpu(), cpu[1]),
+          f"float64 Collider({F64_RETRY_N}): pairs == the CPU run's")
+    phase("float64", n=N, capacity=F64_CAPACITY, pairs=len(expected),
+          counts=[int(res.count) for res in results],
+          oks=[bool(res.ok) for res in results], launches=run,
+          oracle_seconds=oracle_s, retry_count=int(count), **steps,
+          seconds=time.perf_counter() - t0)
+
+
 def counted(fn):
     """(result of ``fn()``, launches per kernel during it): the counters
     are reset just before and read after the card has finished."""
@@ -761,12 +914,12 @@ def main():
             else time_ms(library_fn, batch=KERNEL_BATCH)})
 
     sweep_in = nbytes(*args)
-    cnt = slab_sweep.slab_count(*args)
+    cnt = slab_sweep.slab_window_count(*args)
     record("slab_count", "collision_tpu_torch/csrc/slab_sweep.cu",
            "collision_tpu/kernels/slab_sweep.py:157",
-           abs(int(cnt) - int(slab_sweep.slab_count_plain(*args))),
-           lambda: slab_sweep.slab_count(*args),
-           lambda: slab_sweep.slab_count_plain(*args), sweep_in + 8,
+           abs(int(cnt) - int(slab_sweep.slab_window_count_plain(*args))),
+           lambda: slab_sweep.slab_window_count(*args),
+           lambda: slab_sweep.slab_window_count_plain(*args), sweep_in + 8,
            window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 2, 1, True))
     masks = slab_sweep.slab_masks(*args)
     plain_masks = slab_sweep.slab_masks_plain(*args)
@@ -805,6 +958,7 @@ def main():
             steps[label + "_plain_ms"] = time_ms(
                 lambda: collide(coords, radii, capacity, method="slab"))
     phase("steps", n=N, **steps)
+    diag_path(dev, record, launches, coords, radii, expected)
 
     # --- the column engine's main path at 1M, counted ---
     gxy, ccap, crows = columns.default_column_config(N)
@@ -984,6 +1138,7 @@ def main():
     dense_fill(dev, record, launches)
     grid_path(dev, record, launches, coords, radii, expected,
               dense_oracle(dev))
+    float64_path(dev, coords_np, radii_np)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

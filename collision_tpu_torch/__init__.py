@@ -14,11 +14,12 @@ largest spheres parked out of the small pass), ``"grid"`` (the dense
 uniform-grid stencil, with ``build_grid`` and ``grid_count``) and
 ``"auto"`` (the
 default: the hetero engine on scenes its radius probe finds
-heterogeneous, else slab or column by n), for float32 count-only steps
-and fills at any capacity; and the reference's ``Collider`` API
+heterogeneous, else slab or column by n), for count-only steps and
+fills at any capacity; and the reference's ``Collider`` API
 (``get_collisions``) and ``collide_exact``, which retry a step whose
 ``ok`` is False with exact knobs. ``Collider`` runs on the card unless
-it is given ``device="cpu"``.
+it is given ``device="cpu"``. Float32 steps run the kernels; float64
+steps run the run-expansion fill (``fill.run_fill``) at input precision.
 """
 
 from .collider import Collider, CollisionResult, collide, collide_exact

@@ -21,9 +21,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .columns import CHUNK, _f32, default_column_config, plan_columns
-from .fill import mask_fill, slab_mask_fill
-from .grid import build_grid
+from .columns import CHUNK, _scalar, default_column_config, plan_columns
+from .fill import candidate_count, mask_fill, run_fill, slab_mask_fill
+from .grid import build_grid, tile_counts_plain
 from .hetero import _big_indices, default_nb, hetero_collide
 from .kernels import batched, emit, halo
 from .kernels.slab_sweep import slab_count_dual
@@ -76,8 +76,9 @@ class CollisionResult(NamedTuple):
     pairs:     int64 [capacity, 2] of original sphere ids, or None when
                capacity == 0. Slots past min(count, capacity) hold
                0xFFFFFFFF.
-    scene_min: float32 [3] scene AABB lower corner (of centers).
-    scene_max: float32 [3] scene AABB upper corner.
+    scene_min: [3] scene AABB lower corner (of centers), in the input's
+               float type.
+    scene_max: [3] scene AABB upper corner.
     ok:        bool 0-dim — True unless a static knob was insufficient.
 
     The JAX package returns count and pairs as uint32. Here int64 carries
@@ -118,14 +119,28 @@ def default_grid_dim(n, target_occupancy=72):
     return default_grid_config(n, target_occupancy)[0]
 
 
+def default_cand_capacity(n, capacity):
+    """Bound on the run-expansion fill's conservative candidates (the JAX
+    package's sizing: ~30 candidates a sphere on uniform scenes at the
+    default column occupancy); the ``ok`` contract covers denser scenes."""
+    return max(1 << 17, 8 * capacity, 32 * n)
+
+
 def collide(coords, radii, capacity, method="auto", gxy=None,
             col_capacity=None, slab_rows=None, rpw=DEFAULT_RPW, gx=None,
-            nb=None, grid_dim=None, cell_capacity=None):
+            nb=None, grid_dim=None, cell_capacity=None, cand_capacity=None):
     """One broad-phase step on the device of ``coords``.
 
+    Float32 steps run the engines' kernels. Float64 steps, and
+    ``method="hetero"`` at n <= 64 in either type, run the run-expansion
+    fill (``fill.run_fill``) at input precision, as the JAX package does:
+    its ``gxy`` is the column engine's knob, ``default_column_config(n)``
+    for the slab and hetero methods. A float64 grid count is the plain
+    stencil; a float64 grid fill reroutes to the column method.
+
     Args:
-      coords: float32 [n, 3] sphere centers (n >= 1).
-      radii:  float32 [n] sphere radii, on the same device.
+      coords: float32 or float64 [n, 3] sphere centers (n >= 1).
+      radii:  [n] sphere radii, of the same type and on the same device.
       capacity: pair-buffer capacity; 0 = count-only. Fills above
         ``fill.BIG_FILL_THRESHOLD`` emit through the pair-emission
         kernel.
@@ -134,8 +149,9 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         "hetero" (the ``nb`` largest spheres parked out of the small
         pass, hetero.py: the S-S pass on the slab engine at n >=
         ``HETERO_SLAB_MIN`` unless column knobs are given, on the column
-        engine otherwise; needs n > 64), "grid" (the dense uniform-grid
-        stencil, grid.py; never chosen by "auto"), or "auto": at n >=
+        engine otherwise; the run-expansion fill at n <= 64), "grid"
+        (the dense uniform-grid stencil, grid.py; never chosen by
+        "auto"), or "auto": at n >=
         ``HETERO_AUTO_MIN`` it first probes the radius spread, one host
         sync per call, and sends a scene it finds heterogeneous to the
         hetero engine, with the S-S engine and its knobs sized from the
@@ -153,6 +169,8 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         ``hetero.default_nb(n)``.
       grid_dim, cell_capacity: grid-engine knobs (cells per axis, slots
         per cell); a None resolves from ``default_grid_config(n)``.
+      cand_capacity: candidate bound of the run-expansion fill; None is
+        :func:`default_cand_capacity`.
 
     Returns:
       :class:`CollisionResult`.
@@ -163,14 +181,18 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
             f"port); {', '.join(map(repr, _PORTED))} are")
     if method not in _PORTED:
         raise ValueError(f"Unknown method: {method}")
-    if coords.dtype != torch.float32 or radii.dtype != torch.float32:
-        raise NotImplementedError(
-            "only float32 is ported; the float64 engines (BVH, run-expansion "
-            "fill) are queued in ROADMAP.md, modules items 10-11")
+    if (coords.dtype not in (torch.float32, torch.float64)
+            or radii.dtype != coords.dtype):
+        raise ValueError(
+            f"coords and radii must both be float32 or both float64, got "
+            f"{coords.dtype} and {radii.dtype}")
     capacity = int(capacity)
     if capacity < 0:
         raise ValueError("capacity must be >= 0")
     n = coords.shape[0]
+    f64 = coords.dtype == torch.float64
+    if cand_capacity is None:
+        cand_capacity = default_cand_capacity(n, capacity)
     # The hetero engine's S-S pass: the column engine when the caller
     # pinned column knobs or below the crossover, the slab engine above.
     col_pinned = (gxy is not None or col_capacity is not None
@@ -196,6 +218,10 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
             method = "slab" if n >= SLAB_AUTO_THRESHOLD else "column"
         else:
             method = "slab" if n >= SLAB_FILL_AUTO_THRESHOLD else "column"
+    if method == "grid" and capacity > 0 and f64:
+        # The grid emission reads ids back out of float32 bins; the
+        # column method enumerates at input precision.
+        method = "column"
     lo_scene, hi_scene = scene_bounds(coords)
     if n == 1:
         pairs = torch.full((capacity, 2), NO_PAIR, dtype=torch.int64,
@@ -209,20 +235,23 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
             coords, radii, capacity, auto_gd if grid_dim is None else grid_dim,
             auto_mc if cell_capacity is None else cell_capacity, lo_scene,
             hi_scene)
+    auto = default_column_config(n)
+    if f64 or (method == "hetero" and n <= CHUNK):
+        # The run-expansion fill: column-keyed, at the column knob where
+        # the column method was asked for, else at the default grid.
+        pairs, total, ok = run_fill(
+            coords, radii, capacity,
+            gxy if method == "column" and gxy is not None else auto[0],
+            cand_capacity)
+        return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
     if method == "slab":
         s_gx, s_cap, s_rows = default_slab_config(n, gx=gx)
         return _slab_collide(coords, radii, capacity, s_gx, s_cap, s_rows,
                              lo_scene, hi_scene)
     if method == "hetero":
-        if n <= CHUNK:
-            raise NotImplementedError(
-                "method='hetero' needs n > 64 spheres; the JAX package runs "
-                "the run-expansion fill there, which is not ported yet "
-                "(ROADMAP.md, modules item 10)")
         return _hetero_collide(coords, radii, capacity, nb, rpw, gxy,
                                col_capacity, slab_rows, hetero_engine, gx,
                                lo_scene, hi_scene)
-    auto = default_column_config(n)
     return _column_collide(
         coords, radii, capacity, auto[0] if gxy is None else gxy,
         auto[1] if col_capacity is None else col_capacity,
@@ -283,6 +312,12 @@ def _grid_collide(coords, radii, capacity, grid_dim, cell_capacity,
     count otherwise, as the JAX engine routes; on the card both launch the
     one-cell-per-block count kernel."""
     bins, ok, _ = build_grid(coords, radii, grid_dim, cell_capacity)
+    if capacity == 0 and bins.dtype == torch.float64:
+        # The count kernel reads float32 bins; float64 counts by the plain
+        # stencil, as the JAX package's float64 grid count is its XLA one.
+        total = tile_counts_plain(bins, grid_dim, cell_capacity).sum(
+            dtype=torch.int64)
+        return CollisionResult(total, None, lo_scene, hi_scene, ok)
     if capacity == 0:
         if grid_dim % 2 == 0:
             total = batched.batched_count(bins, grid_dim, cell_capacity)
@@ -317,8 +352,8 @@ def _hetero_stats(coords, radii, nb):
     top = torch.topk(radii, nb + 1).values
     lo, hi = scene_bounds(coords)
     rsum = radii.sum()
-    mean_small = (rsum - top[:nb].sum()) / _f32(max(n - nb, 1), radii.device)
-    mean_all = rsum / _f32(n, radii.device)
+    mean_small = (rsum - top[:nb].sum()) / _scalar(max(n - nb, 1), radii)
+    mean_all = rsum / _scalar(n, radii)
     return torch.cat(
         [torch.stack([top[0], top[nb], mean_small, mean_all]), hi - lo])
 
@@ -444,9 +479,13 @@ class Collider:
 
     ``device`` is where the steps run: the card by default (raising when
     there is none), or ``"cpu"``, where each kernel's plain version runs.
-    Only float32 steps are ported; a float64 Collider's
-    ``get_collisions`` raises ``NotImplementedError``.
+    A float64 Collider's steps run the run-expansion fill, and its retry
+    provisions the candidates the scene needs (up to ``CAND_MAX``).
     """
+
+    #: Largest candidate bound the float64 retry provisions; past it the
+    #: JAX package runs its BVH, which the port does not have yet.
+    CAND_MAX = 1 << 28
 
     def __init__(self, size, ngroups=8, group_size=128,
                  coord_dtype=np.dtype("float32"), method="auto",
@@ -542,15 +581,16 @@ class Collider:
         return result.count, result.pairs
 
     def _retry_exact(self, coords, radii, capacity):
-        """Retry with exact knobs from the engines' statistics: the hetero
-        engine first on a heterogeneous scene, then the column engine at
-        the plan's exact capacities and rows-per-window rung, then the
-        hetero ladder, then the BVH. With every rung failed it returns the
-        best attempt, whose ``ok`` is False."""
+        """Retry with exact knobs from the engines' statistics.
+
+        Float32: the hetero engine first on a heterogeneous scene, then
+        the column engine at the plan's exact capacities and
+        rows-per-window rung, then the hetero ladder, then the BVH.
+        Float64: the run-expansion fill with the candidate bound the scene
+        needs, then the BVH. With every rung failed it returns the best
+        attempt, whose ``ok`` is False."""
         if self.coord_dtype != np.float32:
-            raise NotImplementedError(
-                "the float64 retry (run-expansion fill, BVH) is not ported "
-                "yet (ROADMAP.md, modules items 10-11)")
+            return self._retry_candidates(coords, radii, capacity)
         if self.size > CHUNK:
             s = _hetero_stats(coords, radii, default_nb(self.size)).tolist()
             r_max, r_small, r_mean_s, r_mean_all = s[:4]
@@ -604,6 +644,20 @@ class Collider:
         return collide(coords, radii, capacity, method="column", gxy=gxy,
                        col_capacity=col_cap, slab_rows=slab_rows,
                        rpw=RPW_LADDER[-1])
+
+    def _retry_candidates(self, coords, radii, capacity):
+        """The run-expansion retry: one column step at the scene's exact
+        candidate need plus 2% and 1024 (at most ``CAND_MAX``), then the
+        BVH, then the honest ``ok=False`` result."""
+        gxy = default_column_config(self.size)[0]
+        needed = int(candidate_count(coords, radii, gxy))
+        cand = min(int(needed * 1.02) + 1024, self.CAND_MAX)
+        res = collide(coords, radii, capacity, method="column",
+                      cand_capacity=cand)
+        if bool(res.ok):
+            return res
+        bres = self._bvh_exact(coords, radii, capacity)
+        return res if bres is None else bres
 
     def _hetero_exact(self, coords, radii, capacity):
         """Hetero-engine retry with plan-statistic knobs: the slab S-S

@@ -35,22 +35,26 @@ LANE = 128
 
 
 def _quantize(z, lo, scale, zmax):
-    """Monotone float32 -> integer quantization, as int64.
+    """Monotone float -> integer quantization, as int64.
 
-    ``(z - lo) * scale`` is computed in float32, clamped at 0, truncated
-    to an integer, and clamped at ``zmax`` in the integer domain: float32
-    rounds ``zmax = 2^k - 1`` up, which would let a max-z sphere spill
-    into the column bits of the packed sort key.
+    ``(z - lo) * scale`` is computed in the input's float type, clamped
+    to [0, 2^32] (the JAX package's uint32 cast saturates there),
+    truncated to an integer, and clamped at ``zmax`` in the integer
+    domain: float32 rounds ``zmax = 2^k - 1`` up, which would let a max-z
+    sphere spill into the column bits of the packed sort key.
     """
-    q = torch.clamp_min((z - lo) * scale, 0.0)
+    q = torch.clamp((z - lo) * scale, 0.0, 2.0 ** 32)
     return torch.clamp_max(q.to(torch.int64), zmax)
 
 
-def _f32(v, device):
-    # Divisors and dividends become float32 tensors: torch turns
-    # ``int / tensor`` into ``reciprocal() * int``, which is not IEEE
-    # division and disagrees with the JAX plan in the last bit.
-    return torch.tensor(float(v), dtype=torch.float32, device=device)
+def _scalar(v, like):
+    """``v`` as a 0-dim tensor of ``like``'s float type and device.
+
+    Divisors and dividends become tensors: torch turns ``number /
+    tensor`` into ``reciprocal() * number``, which is not IEEE division
+    and disagrees with the JAX plans in the last bit.
+    """
+    return torch.tensor(float(v), dtype=like.dtype, device=like.device)
 
 
 def build_stream(comps, ids_s, channel7, rows):
@@ -144,24 +148,25 @@ def _column_sort(coords, radii, gxy):
     sorted int64 keys, the original ids in sorted order, the sorted
     centers and radii, and the quantization parameters. A stable sort of
     the keys plus one gather equals the JAX package's stable
-    multi-operand ``lax.sort``.
+    multi-operand ``lax.sort``. Float32 or float64: the geometry and
+    ``zscale`` keep the input's type, as in the JAX package (float64
+    computes ``zmax / zext`` in float64, where float32 rounds zmax up).
     """
-    dev = coords.device
     zbits = _zbits(gxy)
     zmax = (1 << zbits) - 1
     lo_s, hi_s = scene_bounds(coords)
     r_max = torch.amax(radii)
     ext = hi_s - lo_s
-    one = _f32(1.0, dev)
+    one = _scalar(1.0, coords)
     # Column size >= 2*r_max per axis: colliding pairs land in the same
     # or an adjacent column.
-    sxy = torch.maximum(2 * r_max, ext[:2] / _f32(gxy, dev))
+    sxy = torch.maximum(2 * r_max, ext[:2] / _scalar(gxy, coords))
     sxy = torch.where(sxy > 0, sxy, one)
     cxy = torch.clamp(((coords[:, :2] - lo_s[:2]) / sxy).to(torch.int32),
                       0, gxy - 1).to(torch.int64)
     col = cxy[:, 0] * gxy + cxy[:, 1]
     zext = torch.where(ext[2] > 0, ext[2], one)
-    zscale = _f32(zmax, dev) / zext
+    zscale = _scalar(zmax, coords) / zext
     zq = _quantize(coords[:, 2], lo_s[2], zscale, zmax)
     key_s, order = torch.sort((col << zbits) | zq, stable=True)
     return (key_s, order, coords.index_select(0, order),
@@ -182,7 +187,7 @@ def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
 
     key_s, order, c_s, r_s, lo_s, zscale, r_max = _column_sort(
         coords, radii, gxy)
-    zext = _f32(zmax, dev) / zscale
+    zext = _scalar(zmax, zscale) / zscale
     col_s = key_s >> zbits
 
     # Column starts over the extended id range: the pad x-row gxy stays

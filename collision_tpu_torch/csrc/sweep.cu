@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(LANE)
 column_count_kernel(const float* __restrict__ s, const int* __restrict__ starts,
                     const int* __restrict__ w0, const int* __restrict__ wcap,
                     int mc, int rpw, unsigned long long* __restrict__ total) {
-  tile::count_chunk<NOFF, ROLLED>(s, starts, w0, wcap, mc, rpw,
+  tile::count_chunk<NOFF, ROLLED>(s, starts, w0, wcap, mc, rpw, 0, 0,
                                   blockIdx.x / mc, blockIdx.x % mc, total);
 }
 

@@ -55,13 +55,15 @@ __device__ __forceinline__ bool overlaps(float (*sa)[CHUNK], int r,
 }
 
 // Bits r in [r0, r1) of the tile column of window lane j: set iff a-row r
-// overlaps j, and, for the self offset, j > i = g0 + r.
+// overlaps j and, where ``masked`` (the self offset, or any offset of a
+// pass with a minimum index distance dmin), j > t0 + r with t0 = g0 + dmin,
+// that is j > i + dmin for a-row i = g0 + r.
 __device__ __forceinline__ uint32_t tile_bits(float (*sa)[CHUNK],
                                               int r0, int r1, const Box& b,
-                                              bool self, int j, int g0) {
+                                              bool masked, int j, int t0) {
   uint32_t bits = 0;
   for (int r = r0; r < r1; ++r) {
-    const bool hit = overlaps(sa, r, b) & (!self | (j > g0 + r));
+    const bool hit = overlaps(sa, r, b) & (!masked | (j > t0 + r));
     bits |= static_cast<uint32_t>(hit) << (r - r0);
   }
   return bits;
@@ -69,10 +71,10 @@ __device__ __forceinline__ uint32_t tile_bits(float (*sa)[CHUNK],
 
 // Set bits of the whole tile column of lane j (a-rows [0, alen)).
 __device__ __forceinline__ int tile_hits(float (*sa)[CHUNK], int alen,
-                                         const Box& b, bool self, int j,
-                                         int g0) {
-  int hits = __popc(tile_bits(sa, 0, min(alen, 32), b, self, j, g0));
-  if (alen > 32) hits += __popc(tile_bits(sa, 32, alen, b, self, j, g0));
+                                         const Box& b, bool masked, int j,
+                                         int t0) {
+  int hits = __popc(tile_bits(sa, 0, min(alen, 32), b, masked, j, t0));
+  if (alen > 32) hits += __popc(tile_bits(sa, 32, alen, b, masked, j, t0));
   return hits;
 }
 
@@ -112,14 +114,17 @@ __device__ __forceinline__ bool window_lane(int w, int wc, int r, int l,
   return (*j >= w) & (*j < w + wc);
 }
 
-// Count block: chunk k of bucket b against rpw rows of each of its NOFF
-// windows (j > i on offset 0), added to ``total``. A dead chunk leaves at
-// once, the whole block together.
-template <int NOFF, bool ROLLED>
+// Count block: chunk k of bucket b against rpw rows of its windows
+// first_off .. NOFF-1, added to ``total``: j > i on offset 0, and, with
+// DMIN, j > i + dmin on every offset. DMIN is a template argument so that
+// without it the index test of the other offsets folds away. A dead chunk
+// leaves at once, the whole block together.
+template <int NOFF, bool ROLLED, bool DMIN = false>
 __device__ __forceinline__ void count_chunk(
     const float* __restrict__ s, const int* __restrict__ starts,
     const int* __restrict__ w0, const int* __restrict__ wcap, int mc,
-    int rpw, int b, int k, unsigned long long* __restrict__ total) {
+    int rpw, int first_off, int dmin, int b, int k,
+    unsigned long long* __restrict__ total) {
   const int a1 = starts[b + 1];
   const int g0 = starts[b] + k * CHUNK;
   if (g0 >= a1) return;
@@ -132,12 +137,14 @@ __device__ __forceinline__ void count_chunk(
   int hits = 0;
 #pragma unroll
   for (int off = 0; off < NOFF; ++off) {
+    if (off < first_off) continue;
     const long long e = (static_cast<long long>(b) * mc + k) * NOFF + off;
     const int w = w0[e], wc = wcap[e];
     for (int r = 0; r < rpw; ++r) {
       int j;
       if (window_lane<ROLLED>(w, wc, r, threadIdx.x, &j))
-        hits += tile_hits(sa, alen, load_box(s, j), off == 0, j, g0);
+        hits += tile_hits(sa, alen, load_box(s, j), (off == 0) || DMIN, j,
+                          DMIN ? g0 + dmin : g0);
     }
   }
   block_add(hits, total);

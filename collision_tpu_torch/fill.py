@@ -1,4 +1,17 @@
-"""Pair fill over the sweep engines' packed masks (collision_tpu/fill.py).
+"""Pair fills: the run-expansion fill, and the fill over the sweep
+engines' packed masks (collision_tpu/fill.py).
+
+The run-expansion fill (``run_fill``, ``candidate_count``) is the JAX
+package's portable path: plain tensor code at the input's precision,
+float32 or float64, and the only path of float64 steps. For each sorted
+sphere and each of the 5 half-stencil columns, the conservative z-window
+of possible partners is one run of the column-sorted order; the runs'
+candidates are tested with the strict box test, in sorted-sphere-major,
+offset-minor, ascending-j order. The JAX package's stride pyramid
+(``_S``, ``_auto_strides``, ``_run_of_consecutive``) and its chunked
+``lax.scan`` exist for the TPU's gathers and are gone: one
+``searchsorted`` finds each candidate's run, and the candidate pass is
+chunked only to bound memory.
 
 The column fill (``mask_fill``, ``column_fill_from_plan``) tests every
 chunk against ``rpw`` aligned rows of its 5 windows. The slab fill
@@ -17,11 +30,129 @@ Two emitters, as in the JAX package (``_pick_emit``): up to
 
 import torch
 
-from .columns import CHUNK, LANE, plan_columns
+from .columns import (CHUNK, COLUMN_OFFSETS, LANE, _column_sort, _quantize,
+                      _zbits, plan_columns)
 from .kernels import pair_emit, slab_sweep, sweep
 from .kernels.pair_emit import popcount, row_popcounts, row_words, select_bit
 from .ops import inclusive_scan, sorted_bucket_starts
 from .slabs import NO_PAIR, SLAB_OFFSETS, plan_slabs, residual_pairs
+from .utils import round_up
+
+#: The JAX package rounds the candidate pass's chunk to a multiple of its
+#: run lookup's refine width, 8; ``run_fill`` rounds ``cand_capacity`` by
+#: the same chunk, so that both packages bound the candidates alike.
+_CHUNK_ROUND = 8
+#: Candidates tested per pass (the JAX package's default chunk): bounds
+#: the pass's memory.
+_CHUNK = 1 << 20
+
+
+def _candidate_runs(key_s, c_s, r_s, lo_s, zscale, r_max, gxy):
+    """(run_w0, run_len), int64 [5n]: each sorted sphere's conservative
+    z-window run in each of the 5 half-stencil columns, sphere-major and
+    offset-minor (|z_i - z_j| < r_i + r_max is necessary for overlap).
+    The self column's run starts at i + 1, the j > i dedup."""
+    n = key_s.shape[0]
+    dev = key_s.device
+    zbits = _zbits(gxy)
+    zmax = (1 << zbits) - 1
+    col_s = key_s >> zbits
+    cx, cy = col_s // gxy, col_s % gxy
+    z_s = c_s[:, 2]
+    half = r_s + r_max
+    qlo = _quantize(z_s - half, lo_s[2], zscale, zmax)
+    qhi = _quantize(z_s + half, lo_s[2], zscale, zmax)
+    keys, valid = [], []
+    for dx, dy in COLUMN_OFFSETS:
+        xb, yb = cx + dx, cy + dy
+        valid.append((yb >= 0) & (yb < gxy) & (xb < gxy))
+        cb = (xb * gxy + torch.clamp(yb, 0, gxy - 1)) << zbits
+        keys += [cb + qlo, cb + qhi + 1]
+    pos = sorted_bucket_starts(key_s, torch.stack(keys).reshape(-1)) \
+        .reshape(5, 2, n)
+    w0s, lens = [], []
+    for off, (dx, dy) in enumerate(COLUMN_OFFSETS):
+        w0 = pos[off, 0]
+        if (dx, dy) == (0, 0):
+            w0 = torch.maximum(w0, torch.arange(1, n + 1, device=dev))
+        w0s.append(torch.where(valid[off], w0, 0))
+        lens.append(torch.where(valid[off], (pos[off, 1] - w0).clamp_min(0),
+                                0))
+    return torch.stack(w0s, 1).reshape(-1), torch.stack(lens, 1).reshape(-1)
+
+
+def candidate_count(coords, radii, gxy):
+    """The exact int64 number of conservative candidates of
+    :func:`run_fill` at ``gxy`` columns per axis: the ``cand_capacity``
+    a scene needs. The JAX package returns a float32 sum, accurate to
+    ~2^-20 relative."""
+    key_s, _, c_s, r_s, lo_s, zscale, r_max = _column_sort(coords, radii,
+                                                           gxy)
+    return _candidate_runs(key_s, c_s, r_s, lo_s, zscale, r_max,
+                           gxy)[1].sum()
+
+
+def run_fill(coords, radii, capacity, gxy, cand_capacity):
+    """Enumerate colliding pairs by run expansion, at input precision.
+
+    Args:
+      coords: [n, 3] float32 or float64 centers; radii: [n], same type
+        and device.
+      capacity: pair-buffer capacity (0 = count-only).
+      gxy: columns per xy axis (``columns.default_column_config``).
+      cand_capacity: bound on conservative candidates, rounded up to a
+        multiple of the candidate pass's chunk as in the JAX package;
+        where the scene needs more, ``ok`` is False and the result counts
+        only the first ``cand_capacity`` candidates (a correct prefix).
+
+    Returns:
+      (pairs int64 [capacity, 2] of original ids or None, total int64,
+      ok): the first ``capacity`` pairs in candidate order
+      (sorted-sphere-major, offset-minor, ascending j), 0xFFFFFFFF past
+      them; ``ok`` is False past ``cand_capacity`` candidates or at
+      ``sweep.INT32_GUARD`` of them.
+    """
+    cand_capacity = int(cand_capacity)
+    chunk = round_up(min(_CHUNK, max(_CHUNK_ROUND, round_up(
+        cand_capacity, _CHUNK_ROUND))), _CHUNK_ROUND)
+    cand_capacity = round_up(cand_capacity, chunk)
+    dev = coords.device
+    key_s, order, c_s, r_s, lo_s, zscale, r_max = _column_sort(
+        coords, radii, gxy)
+    run_w0, run_len = _candidate_runs(key_s, c_s, r_s, lo_s, zscale, r_max,
+                                      gxy)
+    total_cand = run_len.sum()
+    ok = (total_cand <= cand_capacity) & (total_cand < sweep.INT32_GUARD)
+    # The run of candidate k is the first with ic > k: zero-length runs
+    # never are, so the JAX package's compaction of them is implicit.
+    ic = torch.cumsum(run_len, 0)
+    ex = ic - run_len
+    lo = c_s - r_s[:, None]
+    hi = c_s + r_s[:, None]
+
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    found_a, found_b, found = [], [], 0
+    ncand = min(int(total_cand), cand_capacity)
+    for k0 in range(0, ncand, chunk):
+        k = torch.arange(k0, min(k0 + chunk, ncand), device=dev)
+        r = torch.searchsorted(ic, k, right=True)
+        i = r // 5
+        j = run_w0[r] + (k - ex[r])
+        m = ((hi[i] > lo[j]) & (lo[i] < hi[j])).all(1)
+        total += m.sum()
+        if found < capacity:
+            sel = torch.nonzero(m).flatten()[:capacity - found]
+            found_a.append(order[i[sel]])
+            found_b.append(order[j[sel]])
+            found += sel.numel()
+    if capacity == 0:
+        return None, total, ok
+    pairs = torch.full((capacity, 2), NO_PAIR, dtype=torch.int64, device=dev)
+    if found:
+        pairs[:found] = torch.stack([torch.cat(found_a), torch.cat(found_b)],
+                                    1)
+    return pairs, total, ok
+
 
 #: Capacity above which the emission leaves the sparse path, whose
 #: compaction tables and searchsorted windows are capacity-sized, for

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .columns import _scalar
+
 #: Neighbor offsets covering each unordered cell pair once: (0,0,0) handled
 #: separately with an upper-triangle mask; these 13 are the lexicographically
 #: positive half of the 26-neighborhood.
@@ -42,13 +44,6 @@ class GridCounts(NamedTuple):
     total: torch.Tensor         # int64 0-dim: exact pair count
     ok: torch.Tensor            # bool: False if any cell overflowed
     tile_counts: torch.Tensor   # int32[14, G]: pairs per offset per cell
-
-
-def _scalar(v, like):
-    # A divisor as a tensor of the coordinates' type: torch on the card
-    # divides by a Python number through its reciprocal, which is not IEEE
-    # division and would bin spheres into other cells than the JAX package.
-    return torch.tensor(float(v), dtype=like.dtype, device=like.device)
 
 
 def id_bits(lane):
@@ -77,6 +72,9 @@ def build_grid(coords, radii, grid_dim, cell_capacity):
 
     lo_s = coords.amin(0)
     hi_s = coords.amax(0)
+    # The divisor is a tensor: torch on the card divides by a Python number
+    # through its reciprocal, which is not IEEE division and would bin
+    # spheres into other cells than the JAX package.
     s = torch.maximum(2 * radii.amax(), (hi_s - lo_s) / _scalar(gd, coords))
     s = torch.where(s > 0, s, _scalar(1, coords))
     cxyz = torch.clamp(((coords - lo_s) / s).to(torch.int32), 0, gd - 1).long()

@@ -31,14 +31,17 @@ LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_count_rolled": 0, "sweep_count_aligned": 0,
             "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
             "pair_emit": 0, "halo_count": 0, "batched_count": 0,
-            "grid_tile_counts": 0, "grid_emit": 0}
+            "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    # stream, starts, w0, wcap, gx, mc, rpw, total, cuda stream
-    "slab_count_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # stream, starts, w0, wcap, gx, mc, rpw, first offset, dmin, total,
+    # cuda stream
+    "slab_count_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # stream, diag_thr, positions, d_max, out (count, flagged), cuda stream
+    "diag_count_launch": [_P, _P, _L, _I, _P, _P],
     # stream, starts, w0, wcap, gx, mc, rpw, kg, ng, out, cuda stream
     "slab_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # stream, starts, w0, wcap, ncols, mc, rpw, rolled, total, cuda stream

@@ -74,14 +74,16 @@ def _tables(plan):
     return gxy * gxy, mc
 
 
-def _tile_masks(comps, starts, w0, wcap, mc, noff, c0, c1, rpw, rolled):
-    """bool[c1-c0, mc, noff, rpw, 64, 128]: the tile test of buckets
-    (columns or slabs) [c0, c1).
+def _tile_masks(comps, starts, w0, wcap, mc, noff, c0, c1, rpw, rolled,
+                first_off=0, dmin=0):
+    """bool[c1-c0, mc, noff-first_off, rpw, 64, 128]: the tile test of
+    buckets (columns or slabs) [c0, c1) on offsets first_off .. noff-1.
 
     Entry [c, k, off, r, a, l] is set iff sorted sphere i = g0 + a of
     chunk k (g0 = starts[c] + 64k, i inside the bucket) strictly
-    overlaps the sphere j at lane l of window row r of offset ``off``
-    (see the module docstring), and j > i for offset 0. ``comps`` is the
+    overlaps the sphere j at lane l of window row r of offset
+    ``first_off + off`` (see the module docstring), j > i for offset 0,
+    and j > i + dmin on every offset when ``dmin`` > 0. ``comps`` is the
     stream's six box channels, flattened to [6, Rp*128]; ``w0``/``wcap``
     are flat, (bucket * mc + k) * noff + off.
     """
@@ -93,8 +95,8 @@ def _tile_masks(comps, starts, w0, wcap, mc, noff, c0, c1, rpw, rolled):
     i = g0[..., None] + torch.arange(CHUNK, device=dev)          # [bc, mc, 64]
     a_ok = i < starts[c0 + 1:c1 + 1, None, None]
     sl = slice(c0 * mc * noff, c1 * mc * noff)
-    w = w0[sl].view(bc, mc, noff, 1, 1).long()
-    wc = wcap[sl].view(bc, mc, noff, 1, 1).long()
+    w = w0[sl].view(bc, mc, noff, 1, 1)[:, :, first_off:].long()
+    wc = wcap[sl].view(bc, mc, noff, 1, 1)[:, :, first_off:].long()
     rl = (torch.arange(rpw, device=dev)[:, None] * LANE
           + torch.arange(LANE, device=dev))                      # [rpw, 128]
     if rolled:
@@ -108,12 +110,15 @@ def _tile_masks(comps, starts, w0, wcap, mc, noff, c0, c1, rpw, rolled):
     m = a_ok[:, :, None, None, :, None] & in_win[:, :, :, :, None, :]
     for lo_c, hi_c in ((0, 3), (1, 4), (2, 5)):
         m &= (a[hi_c] > b[lo_c]) & (a[lo_c] < b[hi_c])
-    m[:, :, 0] &= j[:, :, 0, :, None, :] > i[:, :, None, :, None]
+    if dmin:
+        m &= j[:, :, :, :, None, :] > i[:, :, None, None, :, None] + dmin
+    if first_off == 0:
+        m[:, :, 0] &= j[:, :, 0, :, None, :] > i[:, :, None, :, None]
     return m
 
 
 def _tile_batches(stream, starts, w0, wcap, nbuckets, mc, noff, rpw,
-                  rolled):
+                  rolled, first_off=0, dmin=0):
     """Yield the tile masks bucket batch by bucket batch (bounded
     memory)."""
     comps = stream[:, :6, :].permute(1, 0, 2).reshape(6, -1)
@@ -121,16 +126,18 @@ def _tile_batches(stream, starts, w0, wcap, nbuckets, mc, noff, rpw,
     step = max(1, (1 << 25) // (mc * noff * rpw * CHUNK * LANE))
     for c0 in range(0, nbuckets, step):
         yield _tile_masks(comps, starts, w0, wcap, mc, noff, c0,
-                          min(nbuckets, c0 + step), rpw, rolled)
+                          min(nbuckets, c0 + step), rpw, rolled, first_off,
+                          dmin)
 
 
 def tile_count_plain(stream, starts, w0, wcap, nbuckets, mc, noff, rpw,
-                     rolled):
-    """Plain PyTorch count of set tile-test entries, the slab and the
-    column counts' shared reference: int64."""
+                     rolled, first_off=0, dmin=0):
+    """Plain PyTorch count of set tile-test entries on offsets
+    ``first_off`` .. noff-1 (j > i + ``dmin`` on each when dmin > 0),
+    the slab and the column counts' shared reference: int64."""
     total = torch.zeros((), dtype=torch.int64, device=stream.device)
     for m in _tile_batches(stream, starts, w0, wcap, nbuckets, mc, noff,
-                           rpw, rolled):
+                           rpw, rolled, first_off, dmin):
         total += m.sum()
     return total
 

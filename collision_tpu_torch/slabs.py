@@ -9,8 +9,8 @@ never silently wrong.
 
 Differences from the JAX plan, none of which changes a shared field:
 sort keys and positions are int64 (torch's uint32 has no ``<<`` and no
-``searchsorted``), and ``slab_r0`` (the TPU kernel's DMA ring) and
-``diag_thr`` (the unported diagonal kernel) are not built.
+``searchsorted``), and ``slab_r0`` (the TPU kernel's DMA ring) is not
+built.
 """
 
 from typing import NamedTuple
@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .columns import (CHUNK, LANE, _f32, _quantize, build_stream,
+from .columns import (CHUNK, LANE, _quantize, _scalar, build_stream,
                       chunk_z_ranges)
 from .kernels import compact
 from .ops import inclusive_scan, scene_bounds, sorted_bucket_starts
@@ -27,9 +27,9 @@ from .utils import round_up
 #: x half-stencil: the self slab (with j > i) and slab x+1.
 SLAB_OFFSETS = (0, 1)
 
-#: Row rounding of the stream, kept from the JAX plan (its diagonal
-#: kernel reads row blocks of this size) so the two streams have one
-#: shape.
+#: Stream rows per block of the diagonal count (kernels/slab_sweep.py):
+#: the stream's rows are rounded so that every block but the last has a
+#: full successor block, which the count reads and never passes.
 DIAG_B = 32
 
 #: Residual-job capacity of the dual-dispatch count; overflow gives
@@ -54,6 +54,8 @@ class SlabPlan(NamedTuple):
     max_col: torch.Tensor     # int32 stats for host retry
     max_slab_rows: torch.Tensor
     rows_rolled: torch.Tensor  # int32: max ceil(window/128) of any window
+    diag_thr: torch.Tensor    # f32[1] z-proximity threshold of the diagonal
+                              # count's missed-pair detector
     n: int
     gx: int
     mc: int
@@ -96,18 +98,17 @@ def _xbits_z(gx):
 def slab_sort_keys(coords, gx, lo_s, ext, r_max):
     """(int64 ``x_slab << zbits | quantize(z)`` keys, zscale, zext) from
     the scene statistics; ``zext`` is the z extent, or 1 where that is 0."""
-    dev = coords.device
     zbits = _xbits_z(gx)
     zmax = (1 << zbits) - 1
-    one = _f32(1.0, dev)
+    one = _scalar(1.0, coords)
     # Slab width >= 2*r_max: colliding pairs land in the same or an
     # adjacent slab.
-    sx = torch.maximum(2 * r_max, ext[0] / _f32(gx, dev))
+    sx = torch.maximum(2 * r_max, ext[0] / _scalar(gx, coords))
     sx = torch.where(sx > 0, sx, one)
     col = torch.clamp(((coords[:, 0] - lo_s[0]) / sx).to(torch.int32),
                       0, gx - 1).to(torch.int64)
     zext = torch.where(ext[2] > 0, ext[2], one)
-    zscale = _f32(zmax, dev) / zext
+    zscale = _scalar(zmax, coords) / zext
     zq = _quantize(coords[:, 2], lo_s[2], zscale, zmax)
     return (col << zbits) | zq, zscale, zext
 
@@ -202,8 +203,18 @@ def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
         - starts[:gx] // LANE
     max_slab = torch.amax(rows_needed)
     ok = (max_col <= col_capacity) & (max_slab + 2 <= slab_rows)
+
+    # Missed-pair threshold of the diagonal count (kernels/slab_sweep.py):
+    # a same-slab pair (i, j), j > i + D, overlapping in z implies
+    # zlo(i + D + 1) < zhi(i) + r_max + 1/zscale + float32 slop: one
+    # quantization cell (the order is zq-sorted, not z-sorted) plus
+    # rounding headroom scaled to the scene. Float32 throughout, in the
+    # JAX plan's association, so the two agree bit for bit.
+    diag_thr = (r_max + _scalar(1.0, zscale) / zscale
+                + (lo_z.abs() + zext + r_max) * _scalar(2.0 ** -20, zscale)) \
+        .reshape(1)
     return SlabPlan(stream, starts, w0_tab, wcap_tab, ok, max_col,
-                    max_slab, rows_rolled, n=n, gx=gx, mc=mc,
+                    max_slab, rows_rolled, diag_thr, n=n, gx=gx, mc=mc,
                     slab_rows=slab_rows)
 
 
@@ -216,13 +227,13 @@ def plan_from_numpy(d, device):
 
     return SlabPlan(
         t("stream"), t("starts"), t("w0"), t("wcap"), t("ok"),
-        t("max_col"), t("max_slab_rows"), t("rows_rolled"),
+        t("max_col"), t("max_slab_rows"), t("rows_rolled"), t("diag_thr"),
         n=int(d["n"]), gx=int(d["gx"]), mc=int(d["mc"]),
         slab_rows=int(d["slab_rows"]))
 
 
 def _residual_mask_tables(stream, starts, w0f, wcf, mc, noff, j_cap,
-                          base=1):
+                          base=1, dmin=0):
     """The [J, 256, 256] overlap mask of every window remainder past the
     first ``base``*128 lanes, plus the per-job id channels.
 
@@ -235,7 +246,8 @@ def _residual_mask_tables(stream, starts, w0f, wcf, mc, noff, j_cap,
     ``j_cap`` slots, and each job's lanes [w0 + 128(base+seg),
     min(w0 + wcap, w0 + 128(base+1+seg))) are tested against its whole
     chunk with one dense compare. ``ok`` is False when the job list
-    overflowed.
+    overflowed. ``dmin`` > 0 keeps only the pairs at sorted-index distance
+    j - i > dmin (the diagonal count covers the nearer ones).
 
     Returns (m bool[J, 256, 256], a_idf, b_idf f32[J, 256] — the id
     channel of the fetched a/b lanes — and ok).
@@ -284,26 +296,30 @@ def _residual_mask_tables(stream, starts, w0f, wcf, mc, noff, j_cap,
     a_ok = (apos >= g0[:, None]) & (apos < torch.minimum(
         g0 + CHUNK, aend)[:, None])
     b_ok = (jpos >= (w0j + LANE)[:, None]) & (jpos < (w0j + wcj)[:, None])
-    # j > i holds by construction: self-offset jobs start past the chunk,
-    # cross jobs live in a later bucket.
+    # At dmin == 0, j > i holds by construction: self-offset jobs start
+    # past the chunk, cross jobs live in a later bucket.
     m = a_ok[:, :, None] & b_ok[:, None, :]
+    if dmin:
+        m &= jpos[:, None, :] > apos[:, :, None] + dmin
     for lo_c, hi_c in ((0, 3), (1, 4), (2, 5)):
         m &= comp(a6, hi_c)[:, :, None] > comp(b6, lo_c)[:, None, :]
         m &= comp(a6, lo_c)[:, :, None] < comp(b6, hi_c)[:, None, :]
     return m, comp(a6, 6), comp(b6, 6), ok
 
 
-def _residual_mask(plan, j_cap, base):
+def _residual_mask(plan, j_cap, base, dmin=0):
     """:func:`_residual_mask_tables` of a slab plan."""
     return _residual_mask_tables(
         plan.stream, plan.starts, plan.w0.reshape(-1), plan.wcap.reshape(-1),
-        plan.mc, len(SLAB_OFFSETS), j_cap, base)
+        plan.mc, len(SLAB_OFFSETS), j_cap, base, dmin)
 
 
-def residual_count(plan, j_cap=RESIDUAL_JOBS, base=1):
+def residual_count(plan, j_cap=RESIDUAL_JOBS, base=1, dmin=0):
     """(int64 count, ok) of the window lanes beyond the first ``base``*128:
-    the part of each window that the ``base``-row sweep kernels clip."""
-    m, _, _, ok = _residual_mask(plan, j_cap, base)
+    the part of each window that the ``base``-row sweep kernels clip.
+    ``dmin`` keeps only pairs at sorted-index distance j - i > dmin, as
+    the diagonal count (kernels/slab_sweep.slab_count_diag) needs."""
+    m, _, _, ok = _residual_mask(plan, j_cap, base, dmin)
     return m.sum(), ok
 
 

@@ -4,16 +4,20 @@ A copy, not an import: ``import collision_tpu.testing`` imports JAX,
 which the port must run without.
 
 Both oracles use the reference's semantics: strict componentwise overlap
-of the float32 center +- radius boxes, each unordered pair of original
-ids once, no self-pairs, as a set of (smaller id, larger id).
+of the center +- radius boxes, each unordered pair of original ids once,
+no self-pairs, as a set of (smaller id, larger id). The boxes are
+float64 when centers and radii both are, float32 otherwise.
 """
 
 import numpy as np
 
 
 def _boxes(coords, radii):
-    coords = np.asarray(coords, dtype=np.float32)
-    radii = np.asarray(radii, dtype=np.float32).reshape(-1, 1)
+    coords, radii = np.asarray(coords), np.asarray(radii)
+    dt = np.float64 if coords.dtype == radii.dtype == np.float64 \
+        else np.float32
+    coords = coords.astype(dt)
+    radii = radii.astype(dt).reshape(-1, 1)
     return coords - radii, coords + radii
 
 
@@ -43,7 +47,7 @@ def kdtree_collisions(coords, radii, levels=16):
 
     lo, hi = _boxes(coords, radii)
     c64 = np.asarray(coords, dtype=np.float64)
-    r = np.asarray(radii, dtype=np.float32).astype(np.float64)
+    r = np.asarray(radii, dtype=np.float64)
     if len(r) < 2:
         return set()
     slack = 1e-5 * (1.0 + float(np.abs(c64).max()))

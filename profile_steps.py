@@ -11,8 +11,10 @@ S-S pass runs on the column engine, and 512 giants among uniform radii,
 whose S-S pass runs on the slab engine), count and a fill with room for
 every pair; and the reference's dense scene (307200 spheres, radii
 U(0, 0.06), 107,651,273 pairs), its exact column attempt and the whole
-``Collider.get_collisions`` call with its retry. Prints one JSON line per
-reading:
+``Collider.get_collisions`` call with its retry; the diagonal count
+(``slab_count_diag`` at d_max 48) on the uniform scene's slab plan; and
+the uniform scene's float64 count and fill (capacity 2^21, the
+run-expansion fill). Prints one JSON line per reading:
 
 - ``stage``: each stage of a step (plan or bins, sweep or grid count
   kernel, residual jobs, fill), median of 10 samples after warm-up:
@@ -22,7 +24,12 @@ reading:
   each engine (``count``, ``fill``: slab; ``column_count``,
   ``column_fill``: column; ``grid_count``, ``grid_fill``: grid;
   ``hetero_powerlaw_*``, ``hetero_giants_*``: ``auto`` on the mixed-radii
-  scenes; ``dense_exact_fill``, ``dense_get_collisions``).
+  scenes; ``dense_exact_fill``, ``dense_get_collisions``; ``diag_count``:
+  slab plan and ``slab_count_diag``; ``float64_count``,
+  ``float64_fill``; and two kernels alone, for their device times:
+  ``column_count_aligned``, the column count at aligned rows on the
+  column plan, and ``grid_halo_count_odd``, the grid count at an odd
+  grid_dim 25 through ``halo_pairs``).
 - ``profile``: ``STEPS`` steps under ``torch.profiler``, exported as a
   Chrome trace to ``--out`` (default ``build/profile``, gitignored) and
   read back. Device ops per step (kernel, memset and memcpy events),
@@ -32,7 +39,8 @@ reading:
   profiler slows the host, so the profiled wall is not the step time.
   The divisor is checked: the step's sweep kernel must appear exactly
   as often as it runs per step (once; twice in ``dense_get_collisions``,
-  whose first attempt comes back ok=False).
+  whose first attempt comes back ok=False); the float64 steps must run
+  no hand-written kernel at all.
 - ``kernel``: device-only ms per launch of each hand-written kernel, from
   the trace.
 - ``top``: the largest device items of each step.
@@ -59,10 +67,11 @@ STEPS = 5
 
 #: The hand-written kernels, by their demangled names in the trace.
 KERNELS = re.compile(
-    r"::(slab_count_kernel<[01]>|slab_masks_kernel<[01]>|"
+    r"::(slab_count_kernel<[01], (?:true|false)>|slab_masks_kernel<[01]>|"
     r"column_count_kernel<(?:true|false)>|column_masks_kernel|count_kernel|"
     r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel|"
-    r"pair_emit_kernel|grid_count_kernel|grid_emit_kernel)\(")
+    r"pair_emit_kernel|grid_count_kernel|grid_emit_kernel|"
+    r"diag_count_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -110,7 +119,8 @@ def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel,
                  per_step=1):
     """Profile ``steps`` calls of ``fn``; returns False if the divisor
     check fails (``sweep_kernel`` launched other than ``per_step`` times
-    a step)."""
+    a step; with ``sweep_kernel`` None, any hand-written kernel
+    launched)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,7 +148,8 @@ def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel,
         item = by_name[e["name"][:100]]
         item[0] += e["dur"] / 1e3 / steps
         item[1] += 1
-    sweeps = len(by_kernel.get(sweep_kernel, ()))
+    sweeps = len(by_kernel.get(sweep_kernel, ())) if sweep_kernel \
+        else sum(map(len, by_kernel.values()))
     emit("profile", name=label, steps=steps, device_ops_per_step=len(events) / steps,
          device_busy_ms_per_step=busy, step_ms=step_ms,
          idle_share_of_step=1 - busy / step_ms,
@@ -150,7 +161,7 @@ def profile_step(label, fn, steps, step_ms, out_dir, sweep_kernel,
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         emit("top", name=name, step=label, ms_per_step=ms,
              launches_per_step=cnt / steps)
-    if sweeps != steps * per_step:
+    if sweeps != (steps * per_step if sweep_kernel else 0):
         print(f"profile_steps: {label}: {sweeps} {sweep_kernel} launches in "
               f"{steps} steps", file=sys.stderr)
         return False
@@ -174,11 +185,12 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
 
     from chip_smoke import (DENSE_CAPACITY, DENSE_N, DENSE_R, DENSE_ROUTE,
+                            DIAG_D_MAX, F64_CAPACITY, GRID_ODD,
                             HETERO_CAPACITY, giants_scene, powerlaw_scene,
                             uniform_scene)
     from collision_tpu_torch import Collider, collide, columns, fill, grid, slabs
     from collision_tpu_torch.collider import default_grid_config
-    from collision_tpu_torch.kernels import batched, slab_sweep, sweep
+    from collision_tpu_torch.kernels import batched, halo, slab_sweep, sweep
     from collision_tpu_torch.kernels import emit as grid_emit
 
     dev = torch.device("cuda")
@@ -193,10 +205,15 @@ def main():
     cplan = columns.plan_columns(coords, radii, *ccfg)
     gcfg = default_grid_config(N)
     gbins = grid.build_grid(coords, radii, *gcfg)[0]
+    gbins_odd = grid.build_grid(coords, radii, GRID_ODD, gcfg[1])[0]
 
     stages = {
         "plan_slabs": lambda: slabs.plan_slabs(coords, radii, gx, cap, rows),
-        "slab_count_kernel": lambda: slab_sweep.slab_count(*args4),
+        "slab_count_kernel": lambda: slab_sweep.slab_window_count(*args4),
+        "diag_count_kernel": lambda: slab_sweep.diag_count(
+            plan.stream, plan.diag_thr, DIAG_D_MAX),
+        "slab_count_diag": lambda: slab_sweep.slab_count_diag(plan,
+                                                              DIAG_D_MAX),
         "residual_count": lambda: slabs.residual_count(plan),
         "slab_masks_kernel": lambda: slab_sweep.slab_masks(*args4),
         "residual_pairs": lambda: slabs.residual_pairs(plan),
@@ -218,9 +235,10 @@ def main():
     _, _, pl_coords, pl_radii = powerlaw_scene(N, dev)
     _, _, gi_coords, gi_radii = giants_scene(N, dev)
     _, _, de_coords, de_radii = uniform_scene(DENSE_N, dev, DENSE_R)
+    c64, r64 = coords.double(), radii.double()
     steps = {
         "count": (lambda: collide(coords, radii, 0, method="slab"),
-                  "slab_count_kernel<1>"),
+                  "slab_count_kernel<1, false>"),
         "fill": (lambda: collide(coords, radii, CAPACITY, method="slab"),
                  "slab_masks_kernel<1>"),
         "column_count": (lambda: collide(coords, radii, 0, method="column"),
@@ -246,7 +264,16 @@ def main():
                                              DENSE_CAPACITY, **DENSE_ROUTE),
                              "pair_emit_kernel"),
         "dense_get_collisions": (lambda: Collider(DENSE_N).get_collisions(
-            de_coords, de_radii, DENSE_CAPACITY), "pair_emit_kernel", 2)}
+            de_coords, de_radii, DENSE_CAPACITY), "pair_emit_kernel", 2),
+        "diag_count": (lambda: slab_sweep.slab_count_diag(
+            slabs.plan_slabs(coords, radii, gx, cap, rows), DIAG_D_MAX),
+            "diag_count_kernel"),
+        "float64_count": (lambda: collide(c64, r64, 0), None),
+        "float64_fill": (lambda: collide(c64, r64, F64_CAPACITY), None),
+        "column_count_aligned": (lambda: sweep.sweep_count(cplan, 2, False),
+                                 "column_count_kernel<false>"),
+        "grid_halo_count_odd": (lambda: halo.halo_pairs(
+            gbins_odd, GRID_ODD, gcfg[1], 0), "grid_count_kernel")}
     good = True
     for label, (fn, sweep_kernel, *per_step) in steps.items():
         ev, host = timed(fn, reps=3 if label.startswith("dense") else 10)

@@ -1,6 +1,7 @@
 """Port parity: collision_tpu_torch.collide against the JAX package's
 collide (methods "slab", "column" and "auto") with its Pallas kernels in
-interpret mode, and against the numpy oracle. Count and ok must be equal
+interpret mode, and on its run-expansion paths (float64, hetero at n <=
+64), and against the numpy oracle. Count and ok must be equal
 and the pair buffers bit-identical (the order is deterministic in both
 packages); where ``ok`` is False the results are void and only ``ok`` is
 compared. ``auto``'s radius-spread probe is compared within a float32
@@ -78,18 +79,37 @@ def test_collide_single_sphere():
     assert _port(coords, radii, 0).pairs is None
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"method": "bvh"},
-    {"dtype": torch.float64},
-    {"method": "hetero", "n": 64},   # JAX runs its run-expansion fill here
-    {"method": "grid", "dtype": torch.float64, "capacity": 16},
-])
+@pytest.mark.parametrize("kwargs", [{"method": "bvh"}])
 def test_collide_unported_paths_raise(kwargs):
     coords, radii = _scene(kwargs.get("n", 100), 0.05, 0)
     dtype = kwargs.get("dtype", torch.float32)
     with pytest.raises(NotImplementedError):
         collide(torch.from_numpy(coords).to(dtype), torch.from_numpy(radii).to(dtype),
                 kwargs.get("capacity", 0), method=kwargs.get("method", "slab"))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"dtype": "float64"},
+    {"method": "hetero", "n": 64},   # the run-expansion fill, in both packages
+    {"method": "hetero", "n": 64, "dtype": "float64"},
+    {"method": "grid", "dtype": "float64", "capacity": 16},   # to "column"
+])
+def test_run_fill_paths_match_jax(kwargs):
+    # The paths the JAX package serves with its run-expansion fill.
+    coords, radii = _scene(kwargs.get("n", 100), 0.05, 0)
+    dtype = kwargs.get("dtype", "float32")
+    coords, radii = coords.astype(dtype), radii.astype(dtype)
+    method = kwargs.get("method", "slab")
+    expected = brute_force_collisions(coords, radii)
+    for capacity in (0, kwargs.get("capacity", len(expected) + 4)):
+        want = collision_tpu.collide(coords, radii, capacity, method=method)
+        got = collide(torch.from_numpy(coords), torch.from_numpy(radii),
+                      capacity, method=method)
+        assert bool(got.ok) == bool(want.ok) and bool(got.ok)
+        assert int(got.count) == int(want.count) == len(expected)
+        if capacity:
+            np.testing.assert_array_equal(
+                got.pairs.numpy(), np.asarray(want.pairs).astype(np.int64))
 
 
 def test_collide_unknown_method_raises():

@@ -110,10 +110,17 @@ def test_collider_shape_validation():
                                            collisions=None)
 
 
-def test_float64_collider_raises():
+def test_float64_collider_matches_jax():
+    # Float64 steps run the run-expansion fill in both packages.
     coords, radii = _random_scene(100, "float64")
-    with pytest.raises(NotImplementedError):
-        _collider(100, 5, 8, "float64").get_collisions(coords, radii, 64)
+    expected = brute_force_collisions(coords, radii)
+    count, pairs = _collider(100, 5, 8, "float64").get_collisions(
+        coords, radii, 64)
+    want_count, want_pairs = collision_tpu.Collider(
+        100, 5, 8, "float64").get_collisions(coords, radii, 64)
+    assert int(count) == int(want_count) == len(expected)
+    np.testing.assert_array_equal(pairs.numpy(),
+                                  np.asarray(want_pairs).astype(np.int64))
 
 
 def test_collider_needs_a_card_unless_told_cpu(monkeypatch):

@@ -103,7 +103,7 @@ def test_z_divisions_are_ieee_at_gxy16():
                                         gxy).zscale
         assert zscale.numpy().view(np.uint32) \
             == np.asarray(jzscale).view(np.uint32)
-        zext = columns._f32(zmax, "cpu") / zscale
+        zext = columns._scalar(zmax, zscale) / zscale
         assert zext.numpy() == np.float32(zmax) / np.asarray(jzscale)
         naive_differs[0] += int(float(zmax / (tc.amax(0) - tc.amin(0))[2])
                                 != float(zscale))

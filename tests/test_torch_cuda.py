@@ -49,11 +49,15 @@ def test_sweep_kernels_match_plain(cuda, scene):
     plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda), gx, cap, rows)
     args = (plan.stream, plan.starts, plan.w0, plan.wcap)
     before = dict(_build.LAUNCHES)
-    assert int(slab_sweep.slab_count(*args)) \
-        == int(slab_sweep.slab_count_plain(*args))
+    assert int(slab_sweep.slab_window_count(*args)) \
+        == int(slab_sweep.slab_window_count_plain(*args))
     assert torch.equal(slab_sweep.slab_masks(*args),
                        slab_sweep.slab_masks_plain(*args))
-    assert _build.LAUNCHES["slab_count"] == before["slab_count"] + 1
+    # The diagonal count's cross-only pass: offset x+1, j > i + 48.
+    assert int(slab_sweep.slab_window_count(*args, first_off=1, dmin=48)) \
+        == int(slab_sweep.slab_window_count_plain(*args, first_off=1,
+                                                  dmin=48))
+    assert _build.LAUNCHES["slab_count"] == before["slab_count"] + 2
     assert _build.LAUNCHES["slab_masks"] == before["slab_masks"] + 1
 
 
@@ -167,8 +171,8 @@ def test_slab_kernels_at_two_rows_match_plain(cuda):
     plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda),
                             *slabs.default_slab_config(900, gx=1))
     args = (plan.stream, plan.starts, plan.w0, plan.wcap)
-    assert int(slab_sweep.slab_count(*args, rpw=2)) \
-        == int(slab_sweep.slab_count_plain(*args, rpw=2))
+    assert int(slab_sweep.slab_window_count(*args, rpw=2)) \
+        == int(slab_sweep.slab_window_count_plain(*args, rpw=2))
     assert torch.equal(slab_sweep.slab_masks(*args, rpw=2),
                        slab_sweep.slab_masks_plain(*args, rpw=2))
 
@@ -330,3 +334,104 @@ def test_build_grid_on_card_matches_cpu(cuda, grid_dim):
     assert bool(got[1]) == bool(want[1]) and bool(want[1])
     assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[2].cpu(), want[2])
+
+
+def _diag_scene(kind):
+    """The uniform parity scene, or every sphere at one z (partners at any
+    sorted distance: the detector must flag)."""
+    if kind == "uniform":
+        return _scene(2048, 2 / np.sqrt(2048), 26)
+    coords, _ = _scene(400, 0.003, 28)
+    coords[:, 2] = 0.5
+    return coords, torch.full((400,), 0.003)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "same_z"])
+def test_diag_kernel_matches_plain(cuda, kind):
+    coords, radii = _diag_scene(kind)
+    config = slabs.default_slab_config(coords.shape[0])
+    plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda), *config)
+    cpu_plan = slabs.plan_slabs(coords, radii, *config)
+    assert torch.equal(plan.diag_thr.cpu().view(torch.int32),
+                       cpu_plan.diag_thr.view(torch.int32))
+    before = _build.LAUNCHES["diag_count"]
+    # 3000: the staged boxes pass 48 KB of shared memory.
+    d_maxes = (0, 4, 16, 48, 130, 3000)
+    for d_max in d_maxes:
+        got = slab_sweep.diag_count(plan.stream, plan.diag_thr, d_max)
+        want = slab_sweep.diag_count_plain(plan.stream, plan.diag_thr, d_max)
+        assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+        if kind == "same_z" and d_max == 16:
+            assert int(got[1]) > 0
+    assert _build.LAUNCHES["diag_count"] == before + len(d_maxes)
+    with pytest.raises(ValueError, match="d_max"):
+        slab_sweep.diag_count(plan.stream, plan.diag_thr, 32 * 128)
+
+
+@pytest.mark.parametrize("scene,d_max", [((317, 1 / np.sqrt(317), 23), 48),
+                                         ((2048, 2 / np.sqrt(2048), 26), 130)])
+def test_slab_count_diag_on_card_matches_oracle(cuda, scene, d_max):
+    from collision_tpu_torch.testing import brute_force_collisions
+
+    coords, radii = _scene(*scene)
+    config = slabs.default_slab_config(scene[0])
+    plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda), *config)
+    before = dict(_build.LAUNCHES)
+    count, ok = slab_sweep.slab_count_diag(plan, d_max)
+    assert bool(plan.ok) and bool(ok)
+    assert int(count) == len(brute_force_collisions(coords.numpy(),
+                                                    radii.numpy()))
+    assert _build.LAUNCHES["diag_count"] == before["diag_count"] + 1
+    assert _build.LAUNCHES["slab_count"] == before["slab_count"] + 1
+    want = slab_sweep.slab_count_diag(
+        slabs.plan_slabs(coords, radii, *config), d_max)
+    assert int(want[0]) == int(count) and bool(want[1])
+
+
+@pytest.mark.parametrize("method", ["column", "auto", "grid"])
+def test_float64_collide_on_card_matches_oracle(cuda, method):
+    from collision_tpu_torch.testing import (brute_force_collisions,
+                                             pair_array_to_set)
+
+    rng = np.random.RandomState(9)
+    coords = torch.from_numpy(rng.random((3000, 3)))
+    radii = torch.from_numpy(rng.uniform(0, 1.5 / np.sqrt(3000), 3000))
+    expected = brute_force_collisions(coords.numpy(), radii.numpy())
+    for capacity in (0, len(expected) + 8, len(expected) // 2):
+        got = collide(coords.to(cuda), radii.to(cuda), capacity,
+                      method=method, cand_capacity=1 << 20)
+        want = collide(coords, radii, capacity, method=method,
+                       cand_capacity=1 << 20)
+        assert bool(got.ok) and bool(want.ok)
+        assert int(got.count) == int(want.count) == len(expected)
+        if capacity:
+            assert torch.equal(got.pairs.cpu(), want.pairs)
+            assert pair_array_to_set(got.pairs.cpu(), min(
+                capacity, len(expected))) <= expected
+
+
+def test_float64_collider_retries_on_card(cuda):
+    # 1000 spheres at one point: 499,500 pairs past the default 2^17
+    # candidates, so the run-expansion retry provisions the bound.
+    coords = np.zeros((1000, 3))
+    radii = np.full(1000, 0.1)
+    assert not bool(collide(torch.from_numpy(coords).to(cuda),
+                            torch.from_numpy(radii).to(cuda), 1000).ok)
+    count, pairs = Collider(1000, coord_dtype="float64").get_collisions(
+        coords, radii, 1000)
+    want = Collider(1000, coord_dtype="float64",
+                    device="cpu").get_collisions(coords, radii, 1000)
+    assert int(count) == int(want[0]) == 499_500
+    assert torch.equal(pairs.cpu(), want[1])
+
+
+@pytest.mark.parametrize("name", ["clustered_blobs", "power_law_radii",
+                                  "lattice_touching", "lattice_nudged",
+                                  "huge_magnitudes", "planar", "collinear",
+                                  "many_duplicates", "fuzz_0", "fuzz_1",
+                                  "fuzz_2", "fuzz_3"])
+def test_adversarial_scene_on_card(cuda, name):
+    from test_torch_adversarial import SCENES, check_engines
+
+    coords, radii, grid_dim = SCENES[name]()
+    check_engines(coords, radii, grid_dim, cuda)
