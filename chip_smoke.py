@@ -35,7 +35,9 @@ on the reference's dense scene:
    attempt comes back ok=False and whose retry must take the column
    route at exact knobs and return all 107,651,273 pairs: checked against
    the independent count-only call, for strict overlap, self pairs and
-   repeats on the card, and bit for bit against the plain path;
+   repeats on the card, and bit for bit against the plain path; the row
+   counts (``row_popcounts``) and the emission kernel against their plain
+   versions at the exact plan;
 7. ``collide_exact`` at 65536 spheres of the same radii and capacity 2^23
    (``dense_oracle``), against the k-d tree oracle;
 8. the grid engine (``grid``) on the 1M uniform scene at its default
@@ -60,18 +62,20 @@ on the reference's dense scene:
    bound and whose retry must return all 499,500 pairs.
 
 Each engine's main path, and each of the phases above, runs with the
-kernel launch counters reset just before and read just after. Each
-kernel is compared with its plain version at the shapes its path gives
-it, and timed with CUDA events:
+kernel launch counters reset just before and read just after; the slab
+engine's plain path must launch no kernel at all. Each kernel is
+compared with its plain version at the shapes its path gives it, and
+timed with CUDA events:
 the steps one call at a time (closed loop), each kernel and its plain
 version over back-to-back calls. Each kernel's record holds its bound:
 the larger of the bytes it must move (inputs read once, outputs written
 once) at the H100's 3.35 TB/s and its box tests (six float compares
 each, counted from this run's window and chunk tables) at 67 TFLOP/s
 float32; the pair emission's bytes are the mask words read once and two
-uint32 ids written per pair. The grid kernels' tests are the live ones:
-occ(a) * occ(b) for each tile, occ * (occ - 1) / 2 for a self tile, with
-occ a cell's filled slots.
+int64 ids written per output slot, sentinels included, and the row
+counts' the mask words read once and one int64 count a row. The grid
+kernels' tests are the live ones: occ(a) * occ(b) for each tile, occ *
+(occ - 1) / 2 for a self tile, with occ a cell's filled slots.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -96,7 +100,7 @@ PINNED_GX = 300
 #: ``auto``'s scenes below the slab crossovers: (n, capacities).
 AUTO_SCENES = ((262144, (CAPACITY,)), (32768, (0, CAPACITY)))
 TRUNC_CAPACITY = 1024
-SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask")
+SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask", "row_popcounts")
 COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks")
 #: The hetero scenes' fill capacity: room for every pair of both.
 HETERO_CAPACITY = 1 << 19
@@ -107,10 +111,10 @@ GIANT_RADIUS = 0.02
 HETERO_ROUTES = {
     "hetero_powerlaw": (("column", 26, 1728, 313, 3),
                         ("big_count", "big_pairs", "sweep_count_rolled",
-                         "sweep_masks", "compact_mask")),
+                         "sweep_masks", "compact_mask", "row_popcounts")),
     "hetero_giants": (("slab", 146),
                       ("big_count", "big_pairs", "slab_count", "slab_masks",
-                       "compact_mask")),
+                       "compact_mask", "row_popcounts")),
 }
 #: The fills rerun past BIG_FILL_THRESHOLD, where the emission kernel runs.
 BIG_CAPACITY = 1 << 22
@@ -205,6 +209,7 @@ def plain_kernels():
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
              (bigpass, "big_pairs"), (pair_emit, "emit_pairs"),
+             (pair_emit, "row_popcounts"),
              (halo, "halo_pairs"), (batched, "batched_count"),
              (emit, "halo_tile_counts"), (emit, "emit_pairs")]
     saved = [getattr(mod, name) for mod, name in swaps]
@@ -497,6 +502,17 @@ def dense_fill(dev, record, launches):
                                 route["col_capacity"], route["slab_rows"])
     B = sweep.sweep_masks(plan, route["rpw"])
     rp = pair_emit.row_popcounts(B)
+    rp_plain = pair_emit.row_popcounts_plain(B)
+    check(torch.equal(rp, rp_plain),
+          "dense: row_popcounts at the exact plan == plain")
+    launches["row_popcounts"] = run["row_popcounts"]
+    # Bytes: every mask word read once, one int64 count a row written.
+    record("row_popcounts", "collision_tpu_torch/csrc/pair_emit.cu",
+           "collision_tpu/kernels/pair_emit.py:426", max_abs_err(rp, rp_plain),
+           lambda: pair_emit.row_popcounts(B),
+           lambda: pair_emit.row_popcounts_plain(B), nbytes(B, rp), 0,
+           plain_batch=1, plain_reps=3)
+    del rp_plain
     ws, cb = fill._emit_tables(B, plan.starts.long(),
                                plan.w0.reshape(-1).long(), plan.mc,
                                sweep.NOFF, route["rpw"], rolled=False)
@@ -509,14 +525,19 @@ def dense_fill(dev, record, launches):
           "dense: pair_emit at the exact plan == the Collider's pairs")
     del got, want, pairs
     launches["pair_emit"] = run["pair_emit"]
+    # Bytes: every mask word read once, two int64 ids written a slot,
+    # sentinels included; beside it, the bound of an emission that writes
+    # two uint32 ids a pair and no sentinels.
+    uint32_bound_ms = bound(nbytes(B) + 8 * int(rp.sum()), 0)[0]
     record("pair_emit", "collision_tpu_torch/csrc/pair_emit.cu",
            "collision_tpu/kernels/pair_emit.py:217", err,
            lambda: pair_emit.emit_pairs(*args),
            lambda: pair_emit.emit_pairs_plain(*args),
-           nbytes(B) + 8 * int(rp.sum()), 0, plain_batch=1, plain_reps=1)
+           nbytes(B) + 16 * DENSE_CAPACITY, 0, plain_batch=1, plain_reps=1)
     phase("dense_fill", n=DENSE_N, r_max=DENSE_R, capacity=DENSE_CAPACITY,
           count=int(count), count_only=int(count_only), attempts=attempts,
           launches=run, mask_words=B.numel(), step_ms=step_ms,
+          pair_emit_uint32_bound_ms=uint32_bound_ms,
           exact_attempt_ms=exact_ms, peak_bytes=peak,
           seconds=time.perf_counter() - t0)
 
@@ -880,8 +901,11 @@ def main():
     phase("oracle", pairs=len(expected), seconds=time.perf_counter() - t0)
     check_against_oracle(res_count, res_fill, expected, f"n={N}")
     with plain_kernels():
-        plain_count = collide(coords, radii, 0, method="slab")
-        plain_fill = collide(coords, radii, CAPACITY, method="slab")
+        (plain_count, plain_fill), plain_run = counted(lambda: (
+            collide(coords, radii, 0, method="slab"),
+            collide(coords, radii, CAPACITY, method="slab")))
+    check(not any(plain_run.values()),
+          f"plain path: every kernel swapped, none launched ({plain_run})")
     check(int(plain_count.count) == int(res_count.count)
           and bool(plain_count.ok) == bool(res_count.ok),
           "count == plain path's count")
@@ -946,7 +970,7 @@ def main():
            "collision_tpu/kernels/compact.py:48", max(errs),
            lambda: compact.compact_mask(small, slabs.RESIDUAL_PAIRS),
            lambda: compact.compact_mask_plain(small, slabs.RESIDUAL_PAIRS),
-           nbytes(small) + 4 * slabs.RESIDUAL_PAIRS + 4, 0,
+           nbytes(small) + 8 * (slabs.RESIDUAL_PAIRS + 1), 0,
            library_fn=lambda: torch.nonzero(small))
 
     # --- step times, kernel path and plain path ---
@@ -1008,7 +1032,8 @@ def main():
               counts=[int(res.count) for res in results],
               oks=[bool(res.ok) for res in results], launches=auto_launches)
         want = {"sweep_count_rolled": 0 in capacities,
-                "sweep_masks": any(capacities)}
+                "sweep_masks": any(capacities),
+                "row_popcounts": any(capacities)}
         for name, ran in auto_launches.items():
             check((ran > 0) == want.get(name, False),
                   f"auto n={n_auto}: {name} launched {ran}x")

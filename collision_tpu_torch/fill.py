@@ -33,7 +33,7 @@ import torch
 from .columns import (CHUNK, COLUMN_OFFSETS, LANE, _column_sort, _quantize,
                       _zbits, plan_columns)
 from .kernels import pair_emit, slab_sweep, sweep
-from .kernels.pair_emit import popcount, row_popcounts, row_words, select_bit
+from .kernels.pair_emit import popcount, row_words, select_bit
 from .ops import inclusive_scan, sorted_bucket_starts
 from .slabs import NO_PAIR, SLAB_OFFSETS, plan_slabs, residual_pairs
 from .utils import round_up
@@ -323,7 +323,7 @@ def column_fill_from_plan(plan, capacity, rpw):
     have dropped a pair.
     """
     B = sweep.sweep_masks(plan, rpw)
-    rp = row_popcounts(B)
+    rp = pair_emit.row_popcounts(B)
     total = rp.sum()
     ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
     ida, idb, trunc_safe = _pick_emit(capacity)(
@@ -351,7 +351,7 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     sweep_plan = plan._replace(
         wcap=torch.clamp_max(plan.wcap, dual_base * LANE))
     B = slab_sweep.slab_sweep_masks(sweep_plan, dual_base)
-    rp = row_popcounts(B)
+    rp = pair_emit.row_popcounts(B)
     mask_total = rp.sum()
     rida, ridb, rcount, r_ok = residual_pairs(plan, base=dual_base)
     total = mask_total + rcount

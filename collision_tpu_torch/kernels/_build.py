@@ -9,8 +9,8 @@ import time, so the package imports on a machine with no CUDA toolkit.
 Each C launch entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`launch` raises on a
 non-zero code. Pointers and the stream go over as ``ctypes.c_void_p``.
-``compact_tile()`` reports the compaction's block size, so the wrapper
-sizes its buffers from the same constant the kernel uses.
+``compact_tile()`` reports the compaction's tile size, so the wrapper
+sizes its look-back state from the same constant the kernel uses.
 """
 
 import ctypes
@@ -31,7 +31,8 @@ LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_count_rolled": 0, "sweep_count_aligned": 0,
             "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
             "pair_emit": 0, "halo_count": 0, "batched_count": 0,
-            "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0}
+            "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0,
+            "row_popcounts": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,18 +49,21 @@ _ARGTYPES = {
     "sweep_count_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # stream, starts, w0, wcap, ncols, mc, rpw, kg, ng, out, cuda stream
     "sweep_masks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # mask, n, capacity, block counts, total, out, nblk, cuda stream
-    "compact_launch": [_P, _L, _I, _P, _P, _P, _I, _P],
-    # mask elements per compaction block
+    # mask, n, tiles, filling blocks, capacity, out, look-back state, its
+    # status words, epochs, cuda stream
+    "compact_launch": [_P, _L, _L, _I, _L, _P, _P, _L, ctypes.c_uint, _P],
+    # mask elements per compaction tile
     "compact_tile": [],
     # bigs, c0, c1, n_always, stream, rows, counts, total, cuda stream
     "big_count_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
     # bigs, c0, c1, n_always, stream, rows, bases, capacity, ida, idb,
     # cuda stream
     "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P],
-    # mask, wstart, cb, ids, nsort, bases, rows, capacity, ida, idb,
+    # mask, wstart, cb, ids, nsort, row ends, rows, capacity, ida, idb,
     # cuda stream
     "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _P],
+    # mask, rows, counts, cuda stream
+    "row_popcount_launch": [_P, _L, _P, _P],
     # bins, gd, M, tile counts, tile_pad, total, cuda stream
     "grid_count_launch": [_P, _I, _I, _P, _I, _P, _P],
     # bins, gd, M, tile_pad, tiles, bases, h, capacity, pairs, cuda stream
@@ -121,11 +125,23 @@ def library():
     return lib
 
 
+def current_stream(device_index):
+    """The raw handle of a device's current CUDA stream, from PyTorch's
+    own accessor: ``torch.cuda.current_stream`` builds a Stream object
+    on every call, which costs more host time than some launches."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def launch(name, *args):
     """Call entry point ``name`` on the current CUDA stream; raise on a
     launch error."""
-    err = getattr(library(), name)(
-        *args, torch.cuda.current_stream().cuda_stream)
+    launch_on(current_stream(torch.cuda.current_device()), name, *args)
+
+
+def launch_on(stream, name, *args):
+    """Call entry point ``name`` on the CUDA stream ``stream`` (a raw
+    handle); raise on a launch error."""
+    err = getattr(library(), name)(*args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -9,9 +9,11 @@ kernel's packed tile masks in their native layout, B[NB, 2*KGT, 128]
 ascending (mask row, lane, bit) order, the first ``capacity`` of them.
 
 On a CUDA tensor :func:`emit_pairs` launches the kernel of
-``csrc/pair_emit.cu``; on a CPU tensor it runs :func:`emit_pairs_plain`,
-the blocked emission of the JAX package's
-``fill._mask_fill_emit_big``. The JAX kernel's ``mxu`` and ``nostore``
+``csrc/pair_emit.cu``, and :func:`row_popcounts` (the row table the
+emission starts from, which the fills compute anyway) that file's row
+count kernel; on a CPU tensor they run :func:`emit_pairs_plain`, the
+blocked emission of the JAX package's ``fill._mask_fill_emit_big``, and
+:func:`row_popcounts_plain`. The JAX kernel's ``mxu`` and ``nostore``
 variants are TPU perf knobs and are not ported.
 
 Ids are uint32 values held in int64 (int32 bit patterns are accepted as
@@ -29,7 +31,7 @@ from . import _build
 #: temporaries, 64 MiB each.
 EMIT_BLK = 1 << 16
 
-#: Mask rows per pass of :func:`row_popcounts` (bounds its int64
+#: Mask rows per pass of :func:`row_popcounts_plain` (bounds its int64
 #: temporaries at 512 MiB).
 _POPCOUNT_ROWS = 1 << 19
 
@@ -66,14 +68,33 @@ def row_words(B, rows):
     return _words(B.reshape(-1, LANE)[rows])
 
 
-def row_popcounts(B):
-    """int64 set bits of each 128-word row of a mask buffer, in passes of
-    ``_POPCOUNT_ROWS`` rows, so no int64 copy of the whole buffer is
-    made."""
+def row_popcounts_plain(B):
+    """Plain PyTorch version of :func:`row_popcounts`: a SWAR popcount of
+    the int64 words, in passes of ``_POPCOUNT_ROWS`` rows, so no int64
+    copy of the whole buffer is made."""
     Bv = B.reshape(-1, LANE)
     return torch.cat([
         popcount(_words(Bv[r0:r0 + _POPCOUNT_ROWS])).sum(dim=1)
         for r0 in range(0, Bv.shape[0], _POPCOUNT_ROWS)])
+
+
+def row_popcounts(B):
+    """int64 set bits of each 128-word row of a mask buffer (int32 uint32
+    words, any shape whose last dimension is 128): on a CUDA tensor the
+    ``__popc`` kernel of ``csrc/pair_emit.cu``, one warp a row."""
+    if not B.is_cuda:
+        return row_popcounts_plain(B)
+    if B.shape[-1] != LANE:
+        raise ValueError(f"mask rows are {LANE} words, got {tuple(B.shape)}")
+    rows = B.numel() // LANE
+    counts = torch.empty((rows,), dtype=torch.int64, device=B.device)
+    if not rows:
+        return counts
+    _build.launch("row_popcount_launch",
+                  _build.require(B, torch.int32, "masks"), rows,
+                  counts.data_ptr())
+    _build.LAUNCHES["row_popcounts"] += 1
+    return counts
 
 
 def _tables(B, wstart_tab, cb_tab):
@@ -155,20 +176,25 @@ def emit_pairs(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
                                 rp_tab)
     ws, cb = _tables(B, wstart_tab, cb_tab)
     dev = B.device
+    ida = torch.empty((capacity,), dtype=torch.int64, device=dev)
+    idb = torch.empty((capacity,), dtype=torch.int64, device=dev)
+    if not capacity:
+        return ida, idb
     rows = B.shape[0] * B.shape[1]
-    rp = row_popcounts(B) if rp_tab is None else rp_tab.reshape(-1).long()
-    # Each row's first slot: the exclusive scan of the row popcounts,
-    # queued on the stream (no host sync).
-    bases = torch.cumsum(rp, 0) - rp
-    ids = ids_flat.reshape(-1).to(torch.int32).contiguous()
-    ida = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
-    idb = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+    rp = row_popcounts(B) if rp_tab is None else rp_tab.reshape(-1)
+    # Each row's end slot: the inclusive scan of the row popcounts, queued
+    # on the stream (no host sync).
+    ends = torch.cumsum(rp, 0, dtype=torch.int64)
+    ids = ids_flat.reshape(-1)
+    if ids.dtype != torch.int64:
+        ids = ids.long() & 0xFFFFFFFF
+    ids = ids.contiguous()
     _build.launch(
         "pair_emit_launch", _build.require(B, torch.int32, "masks"),
         _build.require(ws, torch.int64, "wstart_tab"),
         _build.require(cb, torch.int64, "cb_tab"),
-        _build.require(ids, torch.int32, "ids"), ids.shape[0],
-        _build.require(bases, torch.int64, "bases"), rows, capacity,
+        _build.require(ids, torch.int64, "ids"), ids.shape[0],
+        _build.require(ends, torch.int64, "row ends"), rows, capacity,
         ida.data_ptr(), idb.data_ptr())
     _build.LAUNCHES["pair_emit"] += 1
-    return _words(ida), _words(idb)
+    return ida, idb

@@ -68,9 +68,9 @@ STEPS = 5
 #: The hand-written kernels, by their demangled names in the trace.
 KERNELS = re.compile(
     r"::(slab_count_kernel<[01], (?:true|false)>|slab_masks_kernel<[01]>|"
-    r"column_count_kernel<(?:true|false)>|column_masks_kernel|count_kernel|"
-    r"scan_kernel|write_kernel|big_count_kernel|big_emit_kernel|"
-    r"pair_emit_kernel|grid_count_kernel|grid_emit_kernel|"
+    r"column_count_kernel<(?:true|false)>|column_masks_kernel|compact_kernel|"
+    r"big_count_kernel|big_emit_kernel|pair_emit_kernel|row_popcount_kernel|"
+    r"grid_count_kernel|grid_emit_kernel|"
     r"diag_count_kernel)\(")
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 

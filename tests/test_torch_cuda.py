@@ -77,6 +77,74 @@ def test_compact_kernel_matches_plain(cuda, n, density, capacity):
     assert torch.equal(idx, pidx)
 
 
+def _edge_mask(n, pattern):
+    """A bool mask of n elements: all set, none, only the last, or 30%."""
+    if pattern == "random":
+        return torch.from_numpy(np.random.RandomState(n).random(n) < 0.3)
+    mask = torch.full((n,), pattern == "all")
+    if pattern == "last":
+        mask[-1] = True
+    return mask
+
+
+def _check_compact(mask, capacity, got):
+    idx, total = got
+    want_idx, want_total = compact.compact_mask_plain(mask, capacity)
+    assert idx.dtype == total.dtype == torch.int64 and total.dim() == 0
+    assert int(total) == int(want_total)
+    assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.parametrize("pattern", ["all", "none", "last", "random"])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 1])
+def test_compact_kernel_edges_match_plain(cuda, n, pattern):
+    # Tiles of one element, one short of a tile, one, one past, and three
+    # and one element; capacity below, at and above the total, 0 and 1.
+    mask = _edge_mask(n, pattern).to(cuda)
+    total = int(mask.sum())
+    before = _build.LAUNCHES["compact_mask"]
+    capacities = sorted({max(total - 1, 0), total, total + 5, 0, 1})
+    for capacity in capacities:
+        _check_compact(mask, capacity, compact.compact_mask(mask, capacity))
+    assert _build.LAUNCHES["compact_mask"] == before + len(capacities)
+
+
+def test_compact_kernel_back_to_back(cuda, monkeypatch):
+    # 1000 calls in a row on one stream's look-back state, without a sync,
+    # through two wraps of the epoch (the kernel zeroes the state at each).
+    monkeypatch.setattr(compact, "_EPOCHS", 400)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    masks = [torch.rand(n, device=cuda, generator=gen) < d
+             for n, d in ((200_003, 0.01), (4097, 0.5), (1, 1.0),
+                          (50_000, 0.0), (12_289, 1.0))]
+    capacity = 3000
+    got = [compact.compact_mask(masks[i % len(masks)], capacity)
+           for i in range(1000)]
+    for i, mask in enumerate(masks):
+        want_idx, want_total = compact.compact_mask_plain(mask, capacity)
+        idx = torch.stack([g[0] for g in got[i::len(masks)]])
+        totals = torch.stack([g[1] for g in got[i::len(masks)]])
+        assert torch.equal(idx, want_idx.expand_as(idx))
+        assert bool((totals == want_total).all())
+
+
+def test_compact_kernel_on_two_streams(cuda):
+    # Calls queued on a second stream and on the default one at once each
+    # take their own stream's state.
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mask = torch.rand(1 << 20, device=cuda, generator=gen) < 0.02
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        on_side = [compact.compact_mask(mask, 30_000) for _ in range(50)]
+    on_main = [compact.compact_mask(mask, 30_000) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert (cuda.index or 0, side.cuda_stream) in {
+        (d, s) for d, s in compact._STATES}
+    for got in on_side + on_main:
+        _check_compact(mask, 30_000, got)
+
+
 @pytest.mark.parametrize("scene", SCENES)
 def test_collide_on_card_matches_cpu(cuda, scene):
     n, r_max, seed, gx = scene
@@ -236,6 +304,64 @@ def test_pair_emit_kernel_matches_plain(cuda, engine):
         want = pair_emit.emit_pairs_plain(B, ws, cb, ids, capacity)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert _build.LAUNCHES["pair_emit"] == before + len(capacities)
+
+
+def _rows_of_every_width():
+    """(B, wstart_tab, cb_tab, ids): mask rows of 0, 1, ..., 4096 set bits
+    (and one more empty row), bits at random places, tables that reach
+    past both ends of the ids (the clamps), ids past 2^31."""
+    rng = np.random.RandomState(11)
+    rows = 4098
+    width = np.minimum(np.arange(rows), 4096)
+    width[-1] = 0
+    bits = rng.random((rows, 4096)).argsort(axis=1) < width[:, None]
+    B = np.packbits(bits, axis=1, bitorder="little").view("<u4").view(np.int32)
+    nsort = 6000
+    ws = rng.randint(-200, nsort + 200, (1, rows // 2))
+    cb = rng.randint(-100, nsort + 100, (1, rows // 2))
+    ids = rng.randint(0, 1 << 32, nsort, dtype=np.uint64).astype(np.int64)
+    return (torch.from_numpy(B.reshape(1, rows, 128).copy()),
+            torch.from_numpy(ws), torch.from_numpy(cb), torch.from_numpy(ids))
+
+
+def test_pair_emit_kernel_rows_of_every_width(cuda):
+    B, ws, cb, ids = (t.to(cuda) for t in _rows_of_every_width())
+    rp = pair_emit.row_popcounts(B)
+    assert torch.equal(rp, pair_emit.row_popcounts_plain(B))
+    assert rp[:4097].tolist() == list(range(4097))
+    cum = torch.cumsum(rp, 0)
+    total = int(cum[-1])
+    full = int(cum[4095])             # the row of 4096 bits starts here
+    capacities = (total + 101,        # room for every pair, odd sentinels
+                  full + 2049,        # a cut in the middle of the full row
+                  full + 1, 0, 1, 2, 3)
+    before = dict(_build.LAUNCHES)
+    for capacity in capacities:
+        want = pair_emit.emit_pairs_plain(B, ws, cb, ids, capacity, rp)
+        for rp_tab in (None, rp):
+            got = pair_emit.emit_pairs(B, ws, cb, ids, capacity, rp_tab)
+            assert got[0].dtype == got[1].dtype == torch.int64
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # No launch at capacity 0; the row counts only where none are given.
+    assert _build.LAUNCHES["pair_emit"] == before["pair_emit"] \
+        + 2 * (len(capacities) - 1)
+    assert _build.LAUNCHES["row_popcounts"] == before["row_popcounts"] \
+        + len(capacities) - 1
+
+
+def test_row_popcounts_on_the_dense_exact_plan(cuda):
+    # The reference's dense scene at its exact column route: 0.87 GB of
+    # masks.
+    rng = np.random.RandomState(4)
+    n = 307_200
+    coords = torch.from_numpy(rng.random((n, 3)).astype("float32")).to(cuda)
+    radii = torch.from_numpy(
+        rng.uniform(0, 0.06, n).astype("float32")).to(cuda)
+    plan = columns.plan_columns(coords, radii, 14, 4608, 295)
+    B = sweep.sweep_masks(plan, 12)
+    rp = pair_emit.row_popcounts(B)
+    assert torch.equal(rp, pair_emit.row_popcounts_plain(B))
+    assert int(rp.sum()) == 107_651_273
 
 
 def test_collider_on_card_matches_cpu(cuda):

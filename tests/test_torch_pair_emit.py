@@ -114,6 +114,63 @@ def test_row_popcounts_in_passes(monkeypatch):
     np.testing.assert_array_equal(want.numpy(), bits)
 
 
+def _width_masks(kind):
+    """int32 [1, rows, 128] masks: rows of every width 0-64 then a full
+    row and two empty ones (bits at random places), rows of all ones, or
+    random words."""
+    rng = np.random.RandomState(13)
+    if kind == "widths":
+        width = np.r_[np.arange(65), 4096, 0, 0]
+        bits = rng.random((width.size, 4096)).argsort(axis=1) < width[:, None]
+    elif kind == "ones":
+        bits = np.ones((4, 4096), bool)
+    else:
+        bits = rng.random((6, 4096)) < 0.5
+    words = np.packbits(bits, axis=1, bitorder="little").view("<u4")
+    return torch.from_numpy(words.view(np.int32).reshape(1, -1, 128).copy()), bits
+
+
+@pytest.mark.parametrize("kind", ["widths", "ones", "random"])
+def test_row_popcounts_plain_matches_unpackbits(kind):
+    B, bits = _width_masks(kind)
+    got = pair_emit.row_popcounts_plain(B)
+    assert got.dtype == torch.int64
+    words = B.reshape(-1, 128).numpy().view(np.uint32)
+    want = np.unpackbits(words.view(np.uint8), axis=1).sum(axis=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), bits.sum(axis=1))
+    assert torch.equal(pair_emit.row_popcounts(B), got)
+
+
+@pytest.mark.parametrize("cut", ["none", "mid_full_row", "zero", "one"])
+def test_emit_pairs_plain_contract(cut):
+    # Against a numpy decode of the masks in (row, lane, bit) order: int64
+    # uint32 ids (past 2^31 too), the first `capacity` pairs, 0xFFFFFFFF
+    # after them; tables past both ends of the ids are clamped.
+    B, bits = _width_masks("widths")
+    rows = B.shape[1]
+    rng = np.random.RandomState(17)
+    nsort = 300
+    ws = rng.randint(-20, nsort + 20, (1, rows // 2))
+    cb = rng.randint(-10, nsort + 10, (1, rows // 2))
+    ids = rng.randint(0, 1 << 32, nsort, dtype=np.uint64).astype(np.int64)
+    r, q = np.nonzero(bits)                        # row-major: (row, lane, bit)
+    a = np.clip(cb[0, r // 2] + (r % 2) * 32 + q % 32, 0, nsort - 1)
+    b = np.clip(ws[0, r // 2] + q // 32, 0, nsort - 1)
+    total = r.size
+    full = int(bits[:65].sum())                    # the full row's first slot
+    capacity = {"none": total + 7, "mid_full_row": full + 2048, "zero": 0,
+                "one": 1}[cut]
+    ida, idb = pair_emit.emit_pairs(B, torch.from_numpy(ws), torch.from_numpy(cb),
+                                    torch.from_numpy(ids), capacity)
+    assert ida.dtype == idb.dtype == torch.int64
+    assert ida.shape == idb.shape == (capacity,)
+    k = min(total, capacity)
+    np.testing.assert_array_equal(ida[:k].numpy(), ids[a[:k]])
+    np.testing.assert_array_equal(idb[:k].numpy(), ids[b[:k]])
+    assert (ida[k:] == NO_PAIR).all() and (idb[k:] == NO_PAIR).all()
+
+
 @pytest.mark.parametrize("engine", ["column", "slab"])
 def test_fill_emit_modes_match_jax_kernel_mode(engine, monkeypatch):
     # The fill at the threshold's own value takes the sparse emission,

@@ -68,6 +68,39 @@ def test_compact_plain_matches_pallas(n, density, capacity):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx).astype(np.int64))
 
 
+def _edge_mask(n, pattern):
+    """A bool mask of n elements: all set, none, only the last, or 30%."""
+    if pattern == "random":
+        return np.random.RandomState(n).random(n) < 0.3
+    mask = np.full(n, pattern == "all")
+    mask[-1] = pattern != "none"
+    return mask
+
+
+@pytest.mark.parametrize("pattern", ["all", "none", "last", "random"])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 1])
+def test_compact_plain_edges_match_pallas(n, pattern):
+    # The card kernel's tile edges (4096 elements); one JAX run with room
+    # for every index, the port's cuts below, at and above the total held
+    # to its prefix. The contract: int64 indices, ascending, 0xFFFFFFFF
+    # past the total, the true total as an int64 0-dim tensor.
+    mask = _edge_mask(n, pattern)
+    total = int(mask.sum())
+    want_idx, want_total = jcompact.compact_mask(
+        jnp.asarray(mask), total + 5, interpret=True)
+    want_idx = np.asarray(want_idx).astype(np.int64)
+    assert int(want_total) == total
+    for capacity in sorted({0, 1, max(total - 1, 0), total, total + 5}):
+        idx, got_total = compact.compact_mask(torch.from_numpy(mask), capacity)
+        assert idx.dtype == got_total.dtype == torch.int64
+        assert idx.shape == (capacity,) and got_total.dim() == 0
+        assert int(got_total) == total
+        kept = min(capacity, total)
+        np.testing.assert_array_equal(idx[:kept].numpy(), want_idx[:kept])
+        assert bool((idx[kept:] == compact.NO_INDEX).all())
+        assert (np.diff(idx[:kept].numpy()) > 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.uint8, torch.float32])
 def test_compact_takes_only_bool_masks(dtype):
     with pytest.raises(ValueError, match="bool mask"):
