@@ -59,7 +59,14 @@ on the reference's dense scene:
    (the run-expansion fill, which launches no kernel), against a float64
    k-d tree oracle, and ``Collider(1000, coord_dtype="float64")`` on 1000
    spheres at one point, whose first step overflows the default candidate
-   bound and whose retry must return all 499,500 pairs.
+   bound and whose retry must return all 499,500 pairs;
+11. the grid count and big count kernels at the edges of their cull
+   (``cull_edges``, collision_tpu_torch/testing/scenes.py): boxes that
+   touch across cell faces and one ulp across, radii of half a cell, a
+   305-row cell beside an empty one, the dense oracle scene's grid
+   (grid_dim 8, cell_capacity 192), and bigs on the faces of the rows'
+   union boxes beside rows of pad and of parked lanes, each against its
+   plain version (tile counts, totals, row counts, pair buffers).
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after; the slab
@@ -74,8 +81,15 @@ each, counted from this run's window and chunk tables) at 67 TFLOP/s
 float32; the pair emission's bytes are the mask words read once and two
 int64 ids written per output slot, sentinels included, and the row
 counts' the mask words read once and one int64 count a row. The grid
-kernels' tests are the live ones: occ(a) * occ(b) for each tile, occ *
-(occ - 1) / 2 for a self tile, with occ a cell's filled slots.
+and big kernels' tests are what these inputs need: occ * (occ - 1) / 2
+for a self tile (occ a cell's filled slots), for a neighbour tile the
+rows of each cell that meet the other's union box, multiplied, and for
+a stream row and a big chunk it visits the chunk's bigs that meet the
+row's union box times 128, as the count kernels cull them; their
+records print the live tests beside
+(``dense_tests``: occ(a) * occ(b), 64 x 128 a visited big chunk). The
+big count is also checked on the giants plan, its row counts against
+the plain ones, and the grid count at both grid_dims.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -130,6 +144,9 @@ DENSE_ROUTE = {"method": "column", "gxy": 14, "col_capacity": 4608,
 #: The dense radii at a size the k-d tree oracle checks in seconds.
 ORACLE_N = 65536
 ORACLE_CAPACITY = 1 << 23
+#: (grid_dim, cell_capacity) of the grid kernels' check on that scene:
+#: cells 1/8 wide, up to 163 spheres a cell.
+DENSE_GRID = (8, 192)
 #: Pairs per chunk of the on-card checks of the dense buffer.
 CHECK_CHUNK = 1 << 24
 #: Back-to-back calls per timing sample of a kernel and its plain version.
@@ -283,12 +300,41 @@ def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
 
 
 def big_tests(bigs, stream):
-    """Box tests of the big pass: 64 x 128 per (stream row, visited big
-    chunk)."""
+    """(tests, dense_tests) of the big pass. ``dense_tests``: 64 x 128 per
+    (stream row, visited big chunk), every big against every lane.
+    ``tests``: what these inputs need, the bigs of each visited chunk
+    that meet the row's union box (min lo, max hi over its live lanes,
+    xlo below +inf) times 128, as the count kernel culls them."""
+    import torch
     from collision_tpu_torch.kernels import bigpass
 
+    rows = bigs[0]
     c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
-    return int((n_always + c1 - c0).long().sum()) * 64 * 128
+    dense = int((n_always + c1 - c0).long().sum()) * 64 * 128
+    inf = float("inf")
+    live = (stream[:, 0, :] < inf)[:, None, :]
+    ulo = torch.where(live, stream[:, 0:3, :], inf).amin(-1)[:, None, None]
+    uhi = torch.where(live, stream[:, 3:6, :], -inf).amax(-1)[:, None, None]
+    c = torch.arange(rows.shape[0], device=stream.device)
+    visit = (c < n_always) | ((c >= c0[:, None]) & (c < c1[:, None]))
+    meets = ((rows[None, :, :, 3:6] > ulo) & (rows[None, :, :, 0:3] < uhi)) \
+        .all(-1)                                          # [Rp, nbc, 64]
+    return int((meets & visit[..., None]).sum()) * 128, dense
+
+
+def big_row_counts(bigs, stream):
+    """(the count kernel's int32 row counts, the plain row counts): the
+    counts ``big_pairs`` scans for its bases. A direct launch, outside
+    the wrappers' launch counts."""
+    import torch
+    from collision_tpu_torch.kernels import bigpass
+
+    got = torch.empty((stream.shape[0],), dtype=torch.int32,
+                      device=stream.device)
+    c0, c1, n_always = bigpass.count_launch(bigs, stream, got, None)
+    want = bigpass._tile_hits_plain(bigs[0], c0, c1, n_always, stream, 0,
+                                    stream.shape[0]).sum((1, 2, 3))
+    return got, want
 
 
 def powerlaw_scene(n, dev):
@@ -501,6 +547,19 @@ def dense_fill(dev, record, launches):
     plan = columns.plan_columns(coords, radii, route["gxy"],
                                 route["col_capacity"], route["slab_rows"])
     B = sweep.sweep_masks(plan, route["rpw"])
+    B_plain = sweep.sweep_masks_plain(plan, route["rpw"])
+    err = max_abs_err(B, B_plain)
+    del B_plain
+    # Row 7's bound at this plan: the stream and tables read once, the
+    # masks written once, and every live a-row against the window lanes.
+    mask_tests = window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5,
+                              route["rpw"], False)
+    record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
+           "collision_tpu/kernels/sweep.py:382", err,
+           lambda: sweep.sweep_masks(plan, route["rpw"]),
+           lambda: sweep.sweep_masks_plain(plan, route["rpw"]),
+           nbytes(plan.stream, plan.starts, plan.w0, plan.wcap, B),
+           mask_tests, plain_batch=1, plain_reps=1)
     rp = pair_emit.row_popcounts(B)
     rp_plain = pair_emit.row_popcounts_plain(B)
     check(torch.equal(rp, rp_plain),
@@ -536,7 +595,8 @@ def dense_fill(dev, record, launches):
            nbytes(B) + 16 * DENSE_CAPACITY, 0, plain_batch=1, plain_reps=1)
     phase("dense_fill", n=DENSE_N, r_max=DENSE_R, capacity=DENSE_CAPACITY,
           count=int(count), count_only=int(count_only), attempts=attempts,
-          launches=run, mask_words=B.numel(), step_ms=step_ms,
+          launches=run, mask_words=B.numel(), mask_window_tests=mask_tests,
+          step_ms=step_ms,
           pair_emit_uint32_bound_ms=uint32_bound_ms,
           exact_attempt_ms=exact_ms, peak_bytes=peak,
           seconds=time.perf_counter() - t0)
@@ -567,18 +627,47 @@ def dense_oracle(dev):
 
 
 def grid_tile_work(bins, gd):
-    """(tests, rows), int64[gd^2, tile_pad] in ``halo_tile_counts``'
-    layout: each grid tile's live box tests, occ(a) * occ(b) or occ *
-    (occ - 1) / 2 for the self tile, and the filled rows of its cells,
-    occ(a) + occ(b) or occ, with occ a cell's filled slots."""
+    """(tests, dense_tests, rows), int64[gd^2, tile_pad] in
+    ``halo_tile_counts``' layout, from each cell's live rows (xlo below
+    +inf; occ of them) and its union box (min lo, max hi over them):
+
+    - ``tests``: what the tile's inputs need, occ * (occ - 1) / 2 for the
+      self tile and, for a neighbour tile, the center's rows that meet the
+      neighbour's union box times the neighbour's rows that meet the
+      center's, as the count kernel culls them;
+    - ``dense_tests``: every live pair, occ(a) * occ(b) for a neighbour;
+    - ``rows``: the filled rows of its cells, occ(a) + occ(b) or occ.
+    """
     import torch
     from collision_tpu_torch import grid
     from collision_tpu_torch.kernels import emit
 
-    occ = torch.isfinite(bins[..., 0]).sum(-1)
-    c = occ[1:-1, 1:-1, 1:-1]
-    nbs = [occ[1 + dx:1 + dx + gd, 1 + dy:1 + dy + gd, 1 + dz:1 + dz + gd]
-           for dx, dy, dz in grid._HALF_OFFSETS]
+    inf = float("inf")
+    live = bins[..., 0] < inf
+    lo, hi = bins[..., 0:3], bins[..., 4:7]
+    ulo = torch.where(live[..., None], lo, inf).amin(-2)[..., None, :]
+    uhi = torch.where(live[..., None], hi, -inf).amax(-2)[..., None, :]
+    occ = live.sum(-1)
+
+    def cells(dx, dy, dz):
+        at = (slice(1 + dx, 1 + dx + gd), slice(1 + dy, 1 + dy + gd),
+              slice(1 + dz, 1 + dz + gd))
+        return live[at], lo[at], hi[at], ulo[at], uhi[at], occ[at]
+
+    def meeting(rows, box):
+        """The live rows of cells ``rows`` that meet the union boxes
+        ``box``."""
+        return (rows[0] & ((rows[2] > box[3]) & (rows[1] < box[4])).all(-1)) \
+            .sum(-1)
+
+    c = cells(0, 0, 0)
+    self_tests = c[5] * (c[5] - 1) // 2
+    tests, dense, rows = [self_tests], [self_tests], [c[5]]
+    for d in grid._HALF_OFFSETS:
+        b = cells(*d)
+        tests.append(meeting(c, b) * meeting(b, c))
+        dense.append(c[5] * b[5])
+        rows.append(c[5] + b[5])
 
     def layout(per):
         out = torch.zeros((gd * gd, emit.tile_pad(gd)), dtype=torch.int64,
@@ -586,8 +675,84 @@ def grid_tile_work(bins, gd):
         out[:, :14 * gd] = torch.stack(per, -1).reshape(gd * gd, 14 * gd)
         return out
 
-    return (layout([c * (c - 1) // 2] + [c * b for b in nbs]),
-            layout([c] + [c + b for b in nbs]))
+    return layout(tests), layout(dense), layout(rows)
+
+
+def grid_kernels_agree(bins, gd, mc, label):
+    """The grid count kernel against its plain version on one set of
+    bins: tile counts, the halo count's total and, at an even grid_dim,
+    the batched count's. Returns (max_abs_err, total)."""
+    from collision_tpu_torch.kernels import batched, emit, halo
+
+    tc = emit.halo_tile_counts(bins, gd, mc)
+    total = int(halo.halo_pairs_plain(bins, gd, mc, 0)[1])
+    err = max(max_abs_err(tc, emit.halo_tile_counts_plain(bins, gd, mc)),
+              abs(int(tc.sum()) - total),
+              abs(int(halo.halo_pairs(bins, gd, mc, 0)[1]) - total))
+    if gd % 2 == 0:
+        err = max(err, abs(int(batched.batched_count(bins, gd, mc)) - total))
+    check(err == 0, f"{label}: grid count kernel == plain (tile counts, "
+          f"totals; max_abs_err {err})")
+    return err, total
+
+
+def big_kernels_agree(bigs, stream, label):
+    """The big count kernel against its plain version on one table and
+    stream: the total, the row counts, and big_pairs' buffers at room
+    for every pair and cut inside the pairs. Returns (max_abs_err,
+    total)."""
+    import torch
+    from collision_tpu_torch.kernels import bigpass
+
+    tot, ok = bigpass.big_count_only(bigs, stream)
+    total, plain_ok = bigpass.big_count_only_plain(bigs, stream)
+    check(bool(ok) == bool(plain_ok), f"{label}: big_count: no_overflow == "
+          "plain")
+    total = int(total)
+    got, want = big_row_counts(bigs, stream)
+    err = max(abs(int(tot) - total), max_abs_err(got, want))
+    same = True
+    for capacity in (total + 64, total // 2 + 1):
+        a = bigpass.big_pairs(bigs, stream, capacity)
+        b = bigpass.big_pairs_plain(bigs, stream, capacity)
+        same &= all(torch.equal(x, y) for x, y in zip(a, b))
+    check(err == 0 and same, f"{label}: big count kernel == plain (total, "
+          f"row counts; max_abs_err {err}), big_pairs' buffers bit for bit")
+    return err if same else max(err, 1), total
+
+
+def cull_edges(dev):
+    """The grid count and big count kernels against their plain versions
+    at the edges of their cull (collision_tpu_torch/testing/scenes.py:
+    boxes touching across cell faces and one ulp across, radii of half a
+    cell, a 305-row cell beside an empty one; bigs on the faces of the
+    rows' union boxes, a row of pad lanes, a row of parked lanes) and on
+    the dense oracle scene's grid (65536 spheres, radii U(0, 0.06), grid_dim
+    8, cell_capacity 192: two 128-row chunks, a cull that keeps most
+    rows)."""
+    import torch
+    from collision_tpu_torch import grid
+    from collision_tpu_torch.testing.scenes import (GRID_SCENES,
+                                                    touching_big_pass)
+
+    t0 = time.perf_counter()
+    totals = {}
+    for name, scene in GRID_SCENES.items():
+        coords, radii, gd, mc = scene()
+        bins, ok, _ = grid.build_grid(torch.from_numpy(coords).to(dev),
+                                      torch.from_numpy(radii).to(dev), gd, mc)
+        check(bool(ok), f"{name}: bins ok")
+        totals[name] = grid_kernels_agree(bins, gd, mc, name)[1]
+    _, _, coords, radii = uniform_scene(ORACLE_N, dev, DENSE_R)
+    bins, ok, _ = grid.build_grid(coords, radii, *DENSE_GRID)
+    check(bool(ok), f"dense grid {DENSE_GRID}: bins ok")
+    totals["dense_grid"] = grid_kernels_agree(bins, *DENSE_GRID,
+                                              "dense grid")[1]
+    *table, stream = touching_big_pass()
+    bigs = tuple(torch.from_numpy(a).to(dev) for a in table)
+    totals["touching_big_pass"] = big_kernels_agree(
+        bigs, torch.from_numpy(stream).to(dev), "touching_big_pass")[1]
+    phase("cull_edges", totals=totals, seconds=time.perf_counter() - t0)
 
 
 def grid_path(dev, record, launches, coords, radii, expected, dense):
@@ -648,30 +813,34 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
           f"count {int(d_count)} == oracle")
 
     # --- the four kernels against their plain versions at N's bins ---
+    # (tile counts and totals at both grid_dims, the count kernel's tests
+    # as its cull needs them, the live tests beside them)
     bins_odd = grid.build_grid(coords, radii, GRID_ODD, mc)[0]
-    tests, rows = grid_tile_work(bins, gd)
-    tests_odd = int(grid_tile_work(bins_odd, GRID_ODD)[0].sum())
+    tests, dense_tests, rows = grid_tile_work(bins, gd)
+    tests_odd, dense_odd = (int(t.sum())
+                            for t in grid_tile_work(bins_odd, GRID_ODD)[:2])
+    err_odd = grid_kernels_agree(bins_odd, GRID_ODD, mc,
+                                 f"grid_dim {GRID_ODD}")[0]
+    err = grid_kernels_agree(bins, gd, mc, f"grid_dim {gd}")[0]
     record("halo_count", "collision_tpu_torch/csrc/grid.cu",
-           "collision_tpu/kernels/halo.py:39",
-           abs(int(halo.halo_pairs(bins_odd, GRID_ODD, mc, 0)[1])
-               - int(halo.halo_pairs_plain(bins_odd, GRID_ODD, mc, 0)[1])),
+           "collision_tpu/kernels/halo.py:39", err_odd,
            lambda: halo.halo_pairs(bins_odd, GRID_ODD, mc, 0),
            lambda: halo.halo_pairs_plain(bins_odd, GRID_ODD, mc, 0),
-           nbytes(bins_odd) + 8, tests_odd, plain_batch=2)
+           nbytes(bins_odd) + 8, tests_odd, plain_batch=2,
+           dense_tests=dense_odd)
     record("batched_count", "collision_tpu_torch/csrc/grid.cu",
-           "collision_tpu/kernels/batched.py:23",
-           abs(int(batched.batched_count(bins, gd, mc))
-               - int(batched.batched_count_plain(bins, gd, mc))),
+           "collision_tpu/kernels/batched.py:23", err,
            lambda: batched.batched_count(bins, gd, mc),
            lambda: batched.batched_count_plain(bins, gd, mc),
-           nbytes(bins) + 8, int(tests.sum()), plain_batch=2)
+           nbytes(bins) + 8, int(tests.sum()), plain_batch=2,
+           dense_tests=int(dense_tests.sum()))
     tc = emit.halo_tile_counts(bins, gd, mc)
     record("grid_tile_counts", "collision_tpu_torch/csrc/grid.cu",
-           "collision_tpu/kernels/emit.py:55",
-           max_abs_err(tc, emit.halo_tile_counts_plain(bins, gd, mc)),
+           "collision_tpu/kernels/emit.py:55", err,
            lambda: emit.halo_tile_counts(bins, gd, mc),
            lambda: emit.halo_tile_counts_plain(bins, gd, mc),
-           nbytes(bins, tc), int(tests.sum()), plain_batch=2)
+           nbytes(bins, tc), int(tests.sum()), plain_batch=2,
+           dense_tests=int(dense_tests.sum()))
     flat = tc.reshape(-1)
     tiles = torch.nonzero(flat).flatten()
     bases = (torch.cumsum(flat, 0) - flat)[tiles]
@@ -687,7 +856,8 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
            lambda: emit.emit_pairs_plain(*args),
            32 * int(rows.reshape(-1)[tiles].sum()) + nbytes(tiles, bases)
            + 8 * CAPACITY, int(tests.reshape(-1)[tiles].sum()),
-           plain_batch=1, plain_reps=3)
+           plain_batch=1, plain_reps=3,
+           dense_tests=int(dense_tests.reshape(-1)[tiles].sum()))
 
     # halo_pairs' count on the default bins: the kernel batched_count
     # launches, through the other wrapper.
@@ -703,8 +873,9 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
     phase("grid", n=N, grid_dim=gd, cell_capacity=mc,
           count=int(res_count.count), ok=bool(res_count.ok),
           fill_total=int(res_fill.count), fill_ok=bool(res_fill.ok),
-          launches=run, odd_launches=odd_run, live_tests=int(tests.sum()),
-          live_tests_odd=tests_odd, hit_tiles=tiles.numel(),
+          launches=run, odd_launches=odd_run, tests=int(tests.sum()),
+          dense_tests=int(dense_tests.sum()), tests_odd=tests_odd,
+          dense_tests_odd=dense_odd, hit_tiles=tiles.numel(),
           hit_tile_tests=int(tests.reshape(-1)[tiles].sum()),
           max_occupancy=int(torch.isfinite(bins[..., 0]).sum(-1).max()),
           overflow_ok=bool(over.ok), dense_first_ok=bool(d_first.ok),
@@ -924,9 +1095,12 @@ def main():
     launches = dict(slab_launches)
 
     def record(name, source, replaces, err, fn, plain_fn, moved, tests,
-               library_fn=None, plain_batch=KERNEL_BATCH, plain_reps=10):
+               library_fn=None, plain_batch=KERNEL_BATCH, plain_reps=10,
+               dense_tests=None):
         check(err == 0, f"{name}: kernel == plain (max_abs_err {err})")
         bound_ms, bound_by = bound(moved, tests)
+        extra = {} if dense_tests is None else {"tests": tests,
+                                                "dense_tests": dense_tests}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -935,7 +1109,7 @@ def main():
                                 reps=plain_reps, batch=plain_batch),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library_fn is None
-            else time_ms(library_fn, batch=KERNEL_BATCH)})
+            else time_ms(library_fn, batch=KERNEL_BATCH), **extra})
 
     sweep_in = nbytes(*args)
     cnt = slab_sweep.slab_window_count(*args)
@@ -1074,14 +1248,16 @@ def main():
                lambda: sweep.sweep_count_plain(plan, 2, rolled), col_in + 8,
                window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2,
                             rolled))
+    # (sweep_masks' record: the dense exact plan, where its largest
+    # launches are; see dense_fill)
     masks = sweep.sweep_masks(plan, 2)
     plain_masks = sweep.sweep_masks_plain(plan, 2)
     check(torch.equal(masks, plain_masks), "sweep_masks: torch.equal")
-    record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
-           "collision_tpu/kernels/sweep.py:382", max_abs_err(masks, plain_masks),
-           lambda: sweep.sweep_masks(plan, 2),
-           lambda: sweep.sweep_masks_plain(plan, 2), col_in + nbytes(masks),
-           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2, False))
+    del plain_masks
+    phase("column_masks_262144", ms=time_ms(lambda: sweep.sweep_masks(plan, 2),
+                                            batch=KERNEL_BATCH),
+          bound_ms=bound(col_in + nbytes(masks), window_tests(
+              plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2, False))[0])
 
     # --- column step times, kernel path and plain path ---
     for n_s, (c, r) in ((AUTO_SCENES[0][0], auto_scenes[AUTO_SCENES[0][0]]),
@@ -1108,23 +1284,42 @@ def main():
     launches.update(big_launches)
 
     # --- the big kernels against their plain versions at the power-law
-    # route's parked column plan ---
+    # route's parked column plan and the giants route's parked slab plan
+    # (records: the power-law plan) ---
     t0 = time.perf_counter()
-    c, r = hetero_scenes["hetero_powerlaw"]
-    _, _, parked, bigs = hetero._split(c, r, None)
-    knobs = HETERO_ROUTES["hetero_powerlaw"][0]
-    hplan = columns.plan_columns(c, parked, *knobs[1:4])
-    stream = hplan.stream
-    tests = big_tests(bigs, stream)
+    big_plans = {}
+    for name, (c, r) in hetero_scenes.items():
+        _, _, parked, bigs = hetero._split(c, r, None)
+        knobs = HETERO_ROUTES[name][0]
+        if knobs[0] == "column":
+            hplan = columns.plan_columns(c, parked, *knobs[1:4])
+        else:
+            hplan = slabs.plan_slabs(c, parked,
+                                     *slabs.default_slab_config(N, gx=knobs[1]))
+        big_plans[name] = (bigs, hplan.stream)
+    fields, errs = {}, {}
+    for name, (bigs, stream) in big_plans.items():
+        errs[name], tot = big_kernels_agree(bigs, stream, name)
+        tests, dense = big_tests(bigs, stream)
+        fields[name] = {"stream_rows": stream.shape[0],
+                        "big_chunks": bigs[0].shape[0], "tests": tests,
+                        "dense_tests": dense, "big_small_pairs": tot,
+                        "count_ms": time_ms(
+                            lambda: bigpass.big_count_only(bigs, stream),
+                            batch=KERNEL_BATCH),
+                        "pairs_ms": time_ms(
+                            lambda: bigpass.big_pairs(bigs, stream,
+                                                      HETERO_CAPACITY),
+                            batch=KERNEL_BATCH)}
+    bigs, stream = big_plans["hetero_powerlaw"]
+    tests, dense = big_tests(bigs, stream)
     big_in = nbytes(*bigs, stream)
-    tot, ok = bigpass.big_count_only(bigs, stream)
-    ptot, pok = bigpass.big_count_only_plain(bigs, stream)
-    check(bool(ok) == bool(pok), "big_count: no_overflow == plain")
+    err = errs["hetero_powerlaw"]
     record("big_count", "collision_tpu_torch/csrc/bigpass.cu",
-           "collision_tpu/kernels/bigpass.py:281", abs(int(tot) - int(ptot)),
+           "collision_tpu/kernels/bigpass.py:281", err,
            lambda: bigpass.big_count_only(bigs, stream),
            lambda: bigpass.big_count_only_plain(bigs, stream), big_in + 8,
-           tests, plain_batch=2)
+           tests, plain_batch=2, dense_tests=dense)
     got = bigpass.big_pairs(bigs, stream, HETERO_CAPACITY)
     want = bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY)
     check(int(got[1].ne(0xFFFFFFFF).sum()) == int(got[2]) > 0,
@@ -1135,10 +1330,10 @@ def main():
                abs(int(got[2]) - int(want[2]))),
            lambda: bigpass.big_pairs(bigs, stream, HETERO_CAPACITY),
            lambda: bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY),
-           big_in + 8 * HETERO_CAPACITY + 8, tests, plain_batch=2)
-    phase("big_kernel_plan", n=N, knobs=knobs, stream_rows=stream.shape[0],
-          big_chunks=bigs[0].shape[0], box_tests=tests,
-          big_small_pairs=int(tot), seconds=time.perf_counter() - t0)
+           big_in + 8 * HETERO_CAPACITY + 8, tests, plain_batch=2,
+           dense_tests=dense)
+    phase("big_kernel_plan", n=N, plans=fields,
+          seconds=time.perf_counter() - t0)
 
     # --- hetero step times, kernel path and plain path ---
     for name, (c, r) in hetero_scenes.items():
@@ -1163,6 +1358,7 @@ def main():
     dense_fill(dev, record, launches)
     grid_path(dev, record, launches, coords, radii, expected,
               dense_oracle(dev))
+    cull_edges(dev)
     float64_path(dev, coords_np, radii_np)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,10 +4,11 @@ Port of collision_tpu/kernels/batched.py. The TPU kernel sweeps two
 y-columns per grid step, to halve its per-step DMA issue and share their
 3x4 neighbourhood. The card has no per-step DMA issue to save: this
 wrapper launches the grid count kernel of ``csrc/grid.cu`` that
-``halo.halo_pairs`` counts with, one center cell per block. (A variant
-with two y-adjacent centers per block, loading their joint
-neighbourhood once, measured 15-22% slower on an H100.) On a CPU tensor
-the plain version runs.
+``halo.halo_pairs`` counts with, one center cell per block, which culls
+each neighbour tile's rows against the two cells' union boxes. (A
+variant of the unculled count with two y-adjacent centers per block,
+loading their joint neighbourhood once, measured 15-22% slower on an
+H100.) On a CPU tensor the plain version runs.
 """
 
 import torch

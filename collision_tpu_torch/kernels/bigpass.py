@@ -14,8 +14,11 @@ nothing.
 
 On a CUDA tensor each wrapper launches its kernels from
 ``csrc/bigpass.cu``; on a CPU tensor it runs the plain PyTorch version
-beside it. The JAX package pads the stream to 256-row blocks for its
-grid; the port does not (pad rows hit nothing and emit nothing).
+beside it. The count kernel (also the first pass of ``big_pairs``) tests
+a big against a row's lanes only if it meets the row's union box, an
+exact cull; the emission kernel tests every visited big. The JAX
+package pads the stream to 256-row blocks for its grid; the port does
+not (pad rows hit nothing and emit nothing).
 """
 
 import torch
@@ -77,6 +80,22 @@ def _row_batches(rows, stream):
     return [(r0, min(Rp, r0 + step)) for r0 in range(0, Rp, step)]
 
 
+def count_launch(bigs, stream, counts, total):
+    """Launch the big count kernel on a CUDA stream tensor: each row's
+    int32 count into ``counts`` (int32[Rp], or None) and their sum added
+    to ``total`` (int64[1], or None). Returns the row ranges (c0, c1,
+    n_always) it launched with. Counts no launch: the callers do."""
+    rows, zlo, zhi = bigs
+    c0, c1, n_always = _row_ranges(stream, zlo, zhi)
+    _build.launch(
+        "big_count_launch", _build.require(rows, torch.float32, "bigs"),
+        c0.data_ptr(), c1.data_ptr(), n_always,
+        _build.require(stream, torch.float32, "stream"), stream.shape[0],
+        None if counts is None else counts.data_ptr(),
+        None if total is None else total.data_ptr())
+    return c0, c1, n_always
+
+
 def big_count_only_plain(bigs, stream):
     """Plain PyTorch version of :func:`big_count_only`."""
     rows, zlo, zhi = bigs
@@ -94,14 +113,8 @@ def big_count_only(bigs, stream):
     False from the JAX package's int32 guard up; the total is exact."""
     if not stream.is_cuda:
         return big_count_only_plain(bigs, stream)
-    rows, zlo, zhi = bigs
-    c0, c1, n_always = _row_ranges(stream, zlo, zhi)
     total = torch.zeros((1,), dtype=torch.int64, device=stream.device)
-    _build.launch(
-        "big_count_launch", _build.require(rows, torch.float32, "bigs"),
-        c0.data_ptr(), c1.data_ptr(), n_always,
-        _build.require(stream, torch.float32, "stream"), stream.shape[0],
-        None, total.data_ptr())
+    count_launch(bigs, stream, None, total)
     _build.LAUNCHES["big_count"] += 1
     return total[0], total[0] < INT32_GUARD
 
@@ -147,25 +160,19 @@ def big_pairs(bigs, stream, capacity):
     """
     if not stream.is_cuda:
         return big_pairs_plain(bigs, stream, capacity)
-    rows, zlo, zhi = bigs
-    c0, c1, n_always = _row_ranges(stream, zlo, zhi)
     dev = stream.device
     nrows = stream.shape[0]
-    p_rows = _build.require(rows, torch.float32, "bigs")
-    p_stream = _build.require(stream, torch.float32, "stream")
     counts = torch.empty((nrows,), dtype=torch.int32, device=dev)
     total = torch.zeros((1,), dtype=torch.int64, device=dev)
     ida = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
     idb = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
-    _build.launch("big_count_launch", p_rows, c0.data_ptr(), c1.data_ptr(),
-                  n_always, p_stream, nrows, counts.data_ptr(),
-                  total.data_ptr())
+    c0, c1, n_always = count_launch(bigs, stream, counts, total)
     # Each row's first slot: the exclusive scan of the row counts, queued
     # on the stream (no host sync).
     bases = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-    _build.launch("big_emit_launch", p_rows, c0.data_ptr(), c1.data_ptr(),
-                  n_always, p_stream, nrows, bases.data_ptr(), capacity,
-                  ida.data_ptr(), idb.data_ptr())
+    _build.launch("big_emit_launch", bigs[0].data_ptr(), c0.data_ptr(),
+                  c1.data_ptr(), n_always, stream.data_ptr(), nrows,
+                  bases.data_ptr(), capacity, ida.data_ptr(), idb.data_ptr())
     _build.LAUNCHES["big_pairs"] += 1
     return (ida.long() & 0xFFFFFFFF, idb.long() & 0xFFFFFFFF, total[0],
             total[0] < INT32_GUARD)

@@ -11,10 +11,12 @@ The TPU kernel counts and emits in one sequential sweep through a cursor
 in SMEM, and keeps the pair buffer in VMEM (so capacity stays below
 ~400k there). Blocks of the card run in no order and have no such
 cursor: on a CUDA tensor the count is one launch of the grid count
-kernel (``csrc/grid.cu``), and the emission is ``emit.grid_fill`` (tile
-counts, an int64 scan for each tile's first slot, the hit tiles, the
-tile emission), which writes the same buffer at any capacity. On a CPU
-tensor the plain version runs.
+kernel (``csrc/grid.cu``: one warp per center cell, which tests a
+neighbour's rows only where they meet the center's union box and the
+center's only where they meet the neighbour's, an exact cull), and the
+emission is ``emit.grid_fill`` (tile counts, an int64 scan for each
+tile's first slot, the hit tiles, the tile emission), which writes the
+same buffer at any capacity. On a CPU tensor the plain version runs.
 """
 
 import torch

@@ -1,0 +1,144 @@
+"""Scenes at the edges of the exact cull of the grid count and the big
+pass (``csrc/cull.cuh``), as numpy float32 arrays.
+
+A row is tested against a cell or a stream row only if it meets that
+set's union box; these scenes put rows exactly on the union's faces, keep
+every row inside it, and leave cells and rows empty. Each grid scene
+comes with the (grid_dim, cell_capacity) it is meant for.
+"""
+
+import numpy as np
+
+_F32_INF = np.float32(np.inf)
+
+
+def touching_lattice(k=9, radius=1 / 32):
+    """k^3 spheres of one dyadic radius at centers i * 2r, binned at
+    grid_dim 4 into cells two lattice planes wide: neighbouring boxes meet
+    exactly (a.hi == b.lo), inside cells and across cell faces, which the
+    strict test counts as no pair. Every other sphere with an x-neighbour
+    on each side is moved up by one ulp in x, so its box overlaps its +x
+    neighbour's. Returns (coords, radii, grid_dim, cell_capacity)."""
+    r = np.float32(radius)
+    g = np.arange(k, dtype=np.float32) * (2 * r)
+    coords = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1) \
+        .reshape(-1, 3).copy()
+    nudge = (np.arange(len(coords)) % 2 == 0) & (coords[:, 0] > 0) \
+        & (coords[:, 0] < g[-1])
+    coords[nudge, 0] = np.nextafter(coords[nudge, 0], _F32_INF)
+    return coords, np.full(len(coords), r, np.float32), 4, 32
+
+
+def half_cell_radii(n=500, seed=11):
+    """n uniform spheres, all of radius 1/8, at grid_dim 4: cells 1/4
+    wide, boxes as wide as a cell, so the union boxes of neighbouring
+    cells overlap and the cull keeps (almost) every row. Returns (coords,
+    radii, grid_dim, cell_capacity)."""
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype(np.float32)
+    return coords, np.full(n, 0.125, np.float32), 4, 32
+
+
+def full_cell_beside_empty(seed=12):
+    """300 spheres packed in cell (1, 1, 1) of a grid_dim 4 grid (three
+    128-row chunks at cell_capacity 320) and 400 scattered ones that keep
+    clear of its +z neighbour, which stays empty. Returns (coords, radii,
+    grid_dim, cell_capacity)."""
+    rng = np.random.RandomState(seed)
+    cluster = 0.3 + 0.15 * rng.random((300, 3))
+    scattered = rng.random((2000, 3))
+    clear = ((scattered[:, 0] > 0.2) & (scattered[:, 0] < 0.55)
+             & (scattered[:, 1] > 0.2) & (scattered[:, 1] < 0.55)
+             & (scattered[:, 2] > 0.45) & (scattered[:, 2] < 0.8))
+    scattered = scattered[~clear][:398]
+    coords = np.concatenate([cluster, scattered, [[0, 0, 0], [0.999] * 3]]) \
+        .astype(np.float32)
+    radii = np.concatenate([rng.uniform(0, 0.02, 300),
+                            rng.uniform(0, 0.05, 400)]).astype(np.float32)
+    return coords, radii, 4, 320
+
+
+GRID_SCENES = {"touching_lattice": touching_lattice,
+               "half_cell_radii": half_cell_radii,
+               "full_cell_beside_empty": full_cell_beside_empty}
+
+
+def _ids(ids):
+    return np.asarray(ids, np.int32).view(np.float32)
+
+
+def touching_big_pass():
+    """(rows f32[3, 64, 8], zlo f32[3], zhi f32[3], stream f32[4, 8,
+    128]): a big table (``hetero._bigs_table``'s layout: xlo ylo zlo xhi
+    yhi zhi id-bits +inf; dead bigs all +inf but the id) and a stream
+    (channels xlo ylo zlo xhi yhi zhi id-bits, 0) whose bigs meet the rows'
+    union boxes exactly.
+
+    Row 0 is a dyadic 8x4x4 lattice of boxes. For each axis and side of
+    its union box, one giant (chunk 0, tested against every row) touches
+    the face (no pair) and one reaches one ulp across it (pairs with the
+    lanes on the face). Row 1 holds only pad lanes (all +inf), row 2
+    parked lanes ([+inf, -inf]) and 28 live ones, row 3 row 0 moved up by
+    1/4 in z with every other lane a pad lane; chunks 1-2, z-sorted, touch
+    and cross row 3's union faces the same way, among random boxes.
+    """
+    rng = np.random.RandomState(13)
+    r = np.float32(1 / 64)
+    lane = np.arange(128)
+    c = np.stack([lane % 8, lane // 8 % 4, lane // 32]).astype(np.float32)
+    c = np.float32(0.5) + c * (2 * r)                            # [3, 128]
+    stream = np.full((4, 8, 128), _F32_INF, np.float32)
+    stream[:, 7] = 0
+
+    def put(row, centers, live):
+        stream[row, 0:3] = np.where(live, centers - r, _F32_INF)
+        stream[row, 3:6] = np.where(live, centers + r, _F32_INF)
+        stream[row, 6] = _ids(row * 128 + lane)
+
+    put(0, c, np.ones(128, bool))
+    put(2, c + np.float32(0.125), lane < 28)
+    stream[2, 0:3, 28:] = _F32_INF                      # parked: [+inf, -inf]
+    stream[2, 3:6, 28:] = -_F32_INF
+    c3 = c + np.array([[0], [0], [0.25]], np.float32)
+    put(3, c3, lane % 2 == 0)
+
+    def face_bigs(row):
+        """Twelve boxes against stream row ``row``'s union: per axis and
+        side, one touching its face and one a ulp across it."""
+        box = stream[row][:, stream[row, 0] < _F32_INF]
+        ulo, uhi = box[0:3].min(1), box[3:6].max(1)
+        out = []
+        for axis in range(3):
+            for side in ("hi", "lo"):
+                for across in (False, True):
+                    lo = ulo - np.float32(0.25)
+                    hi = uhi + np.float32(0.25)
+                    if side == "hi":
+                        lo[axis] = np.nextafter(uhi[axis], -_F32_INF) \
+                            if across else uhi[axis]
+                    else:
+                        hi[axis] = np.nextafter(ulo[axis], _F32_INF) \
+                            if across else ulo[axis]
+                    out.append(np.concatenate([lo, hi]))
+        return np.array(out, np.float32)
+
+    def random_bigs(k, z0):
+        ctr = rng.random((k, 3)).astype(np.float32) * np.float32(0.5) \
+            + np.float32(0.4)
+        ctr[:, 2] = z0 + ctr[:, 2] * np.float32(0.3)
+        rad = rng.uniform(0.01, 0.08, (k, 1)).astype(np.float32)
+        return np.concatenate([ctr - rad, ctr + rad], 1)
+
+    boxes0 = np.concatenate([face_bigs(0), random_bigs(20, 0.3)])
+    boxes12 = np.concatenate([face_bigs(3), random_bigs(116, 0.5)])
+    boxes12 = boxes12[np.argsort((boxes12[:, 2] + boxes12[:, 5]) / 2,
+                                 kind="stable")]
+    rows = np.full((192, 8), _F32_INF, np.float32)
+    rows[:32, :6] = boxes0
+    rows[64:, :6] = boxes12
+    rows[:, 6] = _ids(np.arange(192))
+    rows = rows.reshape(3, 64, 8)
+    live = rows[..., 0] < _F32_INF
+    zlo = np.where(live, rows[..., 2], _F32_INF).min(1)
+    zhi = np.where(live, rows[..., 5], -_F32_INF).max(1)
+    return rows, zlo.astype(np.float32), zhi.astype(np.float32), stream

@@ -44,6 +44,11 @@ run-expansion fill). Prints one JSON line per reading:
 - ``kernel``: device-only ms per launch of each hand-written kernel, from
   the trace.
 - ``top``: the largest device items of each step.
+- ``launch``: the grid count kernel at 1M (grid_dim 24 and 25, through
+  ``emit.count_launch``) and the big count kernel on the power-law and
+  giants routes' parked plans (a raw launch, row ranges computed once),
+  median of 15 samples of 20 calls in a row: the launches queue, so the
+  time is the kernel's device time.
 
 Exits non-zero when there is no CUDA device or the divisor check fails.
 """
@@ -98,6 +103,51 @@ def timed(fn, reps=10, warmup=2):
         end.synchronize()
         ev.append(start.elapsed_time(end))
     return statistics.median(ev), statistics.median(host)
+
+
+def queued(fn, batch=20, reps=15):
+    """Median CUDA-event ms per call over ``batch`` calls in a row."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / batch)
+    return statistics.median(ms)
+
+
+def big_count_launcher(coords, radii, route):
+    """A raw launch of the big count kernel on a scene's parked plan for
+    its hetero route (chip_smoke.HETERO_ROUTES), row ranges computed
+    once."""
+    import torch
+    from collision_tpu_torch import columns, hetero, slabs
+    from collision_tpu_torch.kernels import _build, bigpass
+
+    _, _, parked, bigs = hetero._split(coords, radii, None)
+    if route[0] == "column":
+        stream = columns.plan_columns(coords, parked, *route[1:4]).stream
+    else:
+        stream = slabs.plan_slabs(coords, parked, *slabs.default_slab_config(
+            coords.shape[0], gx=route[1])).stream
+    c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
+    total = torch.zeros((1,), dtype=torch.int64, device=stream.device)
+
+    def launch():
+        # The closure holds the tensors, so their memory stays theirs.
+        _build.launch("big_count_launch", bigs[0].data_ptr(), c0.data_ptr(),
+                      c1.data_ptr(), n_always, stream.data_ptr(),
+                      stream.shape[0], None, total.data_ptr())
+    return launch
 
 
 def union_ms(intervals):
@@ -186,8 +236,8 @@ def main():
 
     from chip_smoke import (DENSE_CAPACITY, DENSE_N, DENSE_R, DENSE_ROUTE,
                             DIAG_D_MAX, F64_CAPACITY, GRID_ODD,
-                            HETERO_CAPACITY, giants_scene, powerlaw_scene,
-                            uniform_scene)
+                            HETERO_CAPACITY, HETERO_ROUTES, giants_scene,
+                            powerlaw_scene, uniform_scene)
     from collision_tpu_torch import Collider, collide, columns, fill, grid, slabs
     from collision_tpu_torch.collider import default_grid_config
     from collision_tpu_torch.kernels import batched, halo, slab_sweep, sweep
@@ -280,6 +330,18 @@ def main():
         emit("step", name=label, event_ms=ev, host_enqueue_ms=host)
         good &= profile_step(label, fn, STEPS, ev, out_dir, sweep_kernel,
                              *per_step)
+    # After the profiles, so that these launches stay out of them.
+    launches = {
+        "grid_count_gd24": lambda: grid_emit.count_launch(gbins, *gcfg,
+                                                          False),
+        "grid_count_gd25": lambda: grid_emit.count_launch(
+            gbins_odd, GRID_ODD, gcfg[1], False),
+        "big_count_powerlaw": big_count_launcher(
+            pl_coords, pl_radii, HETERO_ROUTES["hetero_powerlaw"][0]),
+        "big_count_giants": big_count_launcher(
+            gi_coords, gi_radii, HETERO_ROUTES["hetero_giants"][0])}
+    for name, fn in launches.items():
+        emit("launch", name=name, ms=queued(fn))
     return 0 if good else 1
 
 

@@ -21,6 +21,7 @@ from collision_tpu.kernels import slab_sweep as jslab_sweep
 from collision_tpu.kernels import sweep as jsweep
 from collision_tpu_torch import columns, fill, hetero, slabs
 from collision_tpu_torch.kernels import bigpass, slab_sweep, sweep
+from collision_tpu_torch.testing.scenes import touching_big_pass
 
 
 def _power_law(n=1500, seed=0):
@@ -108,12 +109,19 @@ def test_row_ranges_match_jax(big_case):
 
 
 def test_big_count_matches_pallas(big_case):
-    jbigs, jstream, bigs, stream = big_case
-    jtot, jok = jbigpass.big_count_only(
-        tuple(map(jnp.asarray, jbigs)), jstream, interpret=True)
-    tot, ok = bigpass.big_count_only(bigs, stream)
-    assert tot.dtype == torch.int64 and bool(ok) == bool(jok)
-    assert int(tot) == int(jtot) > 0
+    # The power-law scene, then the big count kernel's cull edges: bigs
+    # on the faces of the rows' union boxes, a row of pad lanes only and
+    # a row of parked lanes (testing/scenes.py).
+    *jbigs, jstream = touching_big_pass()
+    for jbigs, jstream, bigs, stream in (
+            big_case, (jbigs, jstream, hetero.bigs_from_numpy(jbigs, "cpu"),
+                       torch.from_numpy(jstream))):
+        jtot, jok = jbigpass.big_count_only(
+            tuple(map(jnp.asarray, jbigs)), jnp.asarray(jstream),
+            interpret=True)
+        tot, ok = bigpass.big_count_only(bigs, stream)
+        assert tot.dtype == torch.int64 and bool(ok) == bool(jok)
+        assert int(tot) == int(jtot) > 0
 
 
 def _cuts(bigs, stream):

@@ -16,6 +16,8 @@ from collision_tpu_torch import (Collider, collide, collide_exact, columns, fill
                                  grid, hetero, slabs)
 from collision_tpu_torch.kernels import (_build, batched, bigpass, compact, emit,
                                          halo, pair_emit, slab_sweep, sweep)
+from collision_tpu_torch.testing.scenes import GRID_SCENES as CULL_GRID_SCENES
+from collision_tpu_torch.testing.scenes import touching_big_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -209,25 +211,39 @@ def _power_law(n=1500, seed=0):
     return torch.from_numpy(coords), torch.from_numpy(radii)
 
 
-@pytest.mark.parametrize("engine", ["column", "slab"])
+@pytest.mark.parametrize("engine", ["column", "slab", "touching"])
 def test_big_kernels_match_plain(cuda, engine):
-    coords, radii = _power_law()
-    nb, bidx, parked, bigs = hetero._split(coords.to(cuda), radii.to(cuda),
-                                           128)
-    n = coords.shape[0]
-    if engine == "column":
-        plan = columns.plan_columns(coords.to(cuda), parked,
-                                    *columns.default_column_config(n))
+    # "touching": bigs on the faces of the rows' union boxes, a row of pad
+    # lanes only and a row of parked lanes (testing/scenes.py).
+    if engine == "touching":
+        *table, stream = touching_big_pass()
+        bigs = tuple(torch.from_numpy(a).to(cuda) for a in table)
+        stream = torch.from_numpy(stream).to(cuda)
     else:
-        plan = slabs.plan_slabs(coords.to(cuda), parked,
-                                *slabs.default_slab_config(n))
+        coords, radii = _power_law()
+        nb, bidx, parked, bigs = hetero._split(coords.to(cuda),
+                                               radii.to(cuda), 128)
+        n = coords.shape[0]
+        if engine == "column":
+            plan = columns.plan_columns(coords.to(cuda), parked,
+                                        *columns.default_column_config(n))
+        else:
+            plan = slabs.plan_slabs(coords.to(cuda), parked,
+                                    *slabs.default_slab_config(n))
+        stream = plan.stream
     before = dict(_build.LAUNCHES)
-    tot, ok = bigpass.big_count_only(bigs, plan.stream)
-    ptot, pok = bigpass.big_count_only_plain(bigs, plan.stream)
+    tot, ok = bigpass.big_count_only(bigs, stream)
+    ptot, pok = bigpass.big_count_only_plain(bigs, stream)
     assert int(tot) == int(ptot) > 0 and bool(ok) == bool(pok)
+    # The row counts that big_pairs scans for its bases.
+    rows = torch.empty((stream.shape[0],), dtype=torch.int32, device=cuda)
+    c0, c1, n_always = bigpass.count_launch(bigs, stream, rows, None)
+    want_rows = bigpass._tile_hits_plain(bigs[0], c0, c1, n_always, stream,
+                                         0, stream.shape[0]).sum((1, 2, 3))
+    assert torch.equal(rows.long(), want_rows)
     for capacity in (int(tot) + 100, int(tot) // 2 + 1, 1):
-        got = bigpass.big_pairs(bigs, plan.stream, capacity)
-        want = bigpass.big_pairs_plain(bigs, plan.stream, capacity)
+        got = bigpass.big_pairs(bigs, stream, capacity)
+        want = bigpass.big_pairs_plain(bigs, stream, capacity)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert _build.LAUNCHES["big_count"] == before["big_count"] + 1
@@ -390,6 +406,12 @@ GRID_SCENES = [
     (3000, 1.5, 6, 48),
     (3000, 1.5, 5, 64),      # odd grid_dim: no batched count
     (2400, 1.5, 2, 400),     # ~300 spheres a cell: three 128-row chunks
+    # The cull's edges (testing/scenes.py), at their own grid_dim and
+    # cell_capacity: boxes touching across cell faces and a ulp across;
+    # radii of half a cell; a 305-row cell beside an empty one.
+    ("touching_lattice", None, None, None),
+    ("half_cell_radii", None, None, None),
+    ("full_cell_beside_empty", None, None, None),
 ]
 
 
@@ -400,7 +422,11 @@ def _grid_scene(n, rscale):
 @pytest.mark.parametrize("scene", GRID_SCENES)
 def test_grid_kernels_match_plain(cuda, scene):
     n, rscale, gd, mc = scene
-    coords, radii = _grid_scene(n, rscale)
+    if isinstance(n, str):
+        coords, radii, gd, mc = CULL_GRID_SCENES[n]()
+        coords, radii = torch.from_numpy(coords), torch.from_numpy(radii)
+    else:
+        coords, radii = _grid_scene(n, rscale)
     bins, ok, _ = grid.build_grid(coords.to(cuda), radii.to(cuda), gd, mc)
     assert bool(ok)
     before = dict(_build.LAUNCHES)

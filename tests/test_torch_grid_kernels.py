@@ -1,7 +1,8 @@
 """Port parity: the plain versions of the grid kernels (kernels/halo.py,
 kernels/batched.py, kernels/emit.py) against the JAX package's Pallas
 kernels in interpret mode, on the same bins (``build_grid`` is
-bit-identical, tests/test_torch_grid.py). Totals, tile counts and pair
+bit-identical, tests/test_torch_grid.py), random scenes and the scenes
+at the grid count kernel's cull edges. Totals, tile counts and pair
 buffers must be equal, truncated buffers included."""
 
 import jax.numpy as jnp
@@ -18,12 +19,20 @@ from collision_tpu.ops.scan import exclusive_scan
 from collision_tpu_torch.grid import build_grid
 from collision_tpu_torch.kernels import batched, emit, halo
 from collision_tpu_torch.testing import brute_force_collisions
+from collision_tpu_torch.testing.scenes import GRID_SCENES
 
 
 def _bins(n, gd, mc, rscale=1.5):
-    rng = np.random.RandomState(n)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, rscale / np.sqrt(n), n).astype("float32")
+    """Bins of n spheres from seed n, radii U(0, rscale/sqrt(n)), or, for
+    a scene name, of that scene of testing/scenes.py at its own grid_dim
+    and cell_capacity (gd and mc must name them)."""
+    if isinstance(n, str):
+        coords, radii, sgd, smc = GRID_SCENES[n]()
+        assert (sgd, smc) == (gd, mc)
+    else:
+        rng = np.random.RandomState(n)
+        coords = rng.random((n, 3)).astype("float32")
+        radii = rng.uniform(0, rscale / np.sqrt(n), n).astype("float32")
     jbins, jok, _ = jgrid.build_grid(jnp.asarray(coords), jnp.asarray(radii),
                                      gd, mc)
     bins, ok, _ = build_grid(torch.from_numpy(coords), torch.from_numpy(radii),
@@ -43,7 +52,12 @@ def _pairs(p):
     return np.asarray(p).astype(np.int64)
 
 
-@pytest.mark.parametrize("n,gd,mc", [(400, 4, 64), (300, 5, 32)])
+@pytest.mark.parametrize("n,gd,mc", [
+    (400, 4, 64), (300, 5, 32),
+    # The grid count kernel's cull edges, held here to the JAX kernel so
+    # that the plain version the card compares with is right on them.
+    ("touching_lattice", 4, 32), ("half_cell_radii", 4, 32),
+    ("full_cell_beside_empty", 4, 320)])
 def test_halo_pairs_plain_matches_jax(n, gd, mc):
     coords, radii, jbins, bins = _bins(n, gd, mc)
     expected = len(brute_force_collisions(coords, radii))
