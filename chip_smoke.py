@@ -60,13 +60,15 @@ on the reference's dense scene:
    k-d tree oracle, and ``Collider(1000, coord_dtype="float64")`` on 1000
    spheres at one point, whose first step overflows the default candidate
    bound and whose retry must return all 499,500 pairs;
-11. the grid count and big count kernels at the edges of their cull
-   (``cull_edges``, collision_tpu_torch/testing/scenes.py): boxes that
-   touch across cell faces and one ulp across, radii of half a cell, a
-   305-row cell beside an empty one, the dense oracle scene's grid
-   (grid_dim 8, cell_capacity 192), and bigs on the faces of the rows'
-   union boxes beside rows of pad and of parked lanes, each against its
-   plain version (tile counts, totals, row counts, pair buffers).
+11. the grid count, column masks and big pass kernels at the edges of
+   their cull (``cull_edges``, collision_tpu_torch/testing/scenes.py):
+   boxes that touch across cell and column faces and one ulp across,
+   radii of half a cell, a 305-row cell beside an empty one, a full
+   column beside an empty one, chunks that end inside a mask word, the
+   dense oracle scene's grid (grid_dim 8, cell_capacity 192), and bigs
+   on the faces of the rows' union boxes beside rows of pad and of
+   parked lanes, each against its plain version (tile counts, totals,
+   masks, row counts, pair buffers).
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after; the slab
@@ -88,8 +90,15 @@ a stream row and a big chunk it visits the chunk's bigs that meet the
 row's union box times 128, as the count kernels cull them; their
 records print the live tests beside
 (``dense_tests``: occ(a) * occ(b), 64 x 128 a visited big chunk). The
-big count is also checked on the giants plan, its row counts against
-the plain ones, and the grid count at both grid_dims.
+column kernels' tests, the counts' and the masks', are each window
+lane's against the 32-row mask words whose union box it meets (beside
+them, ``dense_tests``, every live a-row against the window), and the
+masks' record gives both times of the bound; ``big_pairs``' record adds
+its emission pass alone (``emit_pass``: a queued launch, its bound and
+tests, on the rows it runs: a pair, a first slot below the capacity;
+the bytes are those rows' channels 0-6 and ranges, the big chunks they
+visit once, every row's count and first slot, and the ids written). The big count is also checked on the giants plan, its row counts
+against the plain ones, and the grid count at both grid_dims.
 
 Prints one line per phase; the line before the last is the per-kernel
 JSON record and the last line is
@@ -273,13 +282,19 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bounds(moved, tests):
+    """{"bytes_ms", "operations_ms"}: the times a kernel that moves
+    ``moved`` bytes and runs ``tests`` box tests takes at least, on the
+    published peaks, for each."""
+    return {"bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "operations_ms": tests * BOX_COMPARES / F32_OPS_PER_S * 1e3}
+
+
 def bound(moved, tests):
-    """(bound_ms, bound_by): the least time of a kernel that moves
-    ``moved`` bytes and runs ``tests`` box tests, on the published
-    peaks."""
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = tests * BOX_COMPARES / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    """(bound_ms, bound_by): the larger of :func:`bounds`."""
+    b = bounds(moved, tests)
+    return (b["bytes_ms"], "bytes") if b["bytes_ms"] >= b["operations_ms"] \
+        else (b["operations_ms"], "operations")
 
 
 def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
@@ -299,27 +314,91 @@ def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
     return int((alen[..., None] * lanes).sum())
 
 
-def big_tests(bigs, stream):
+def mask_tests(plan, rpw, rolled=False):
+    """(tests, dense_tests) of a column kernel on a plan at ``rpw``
+    window rows, aligned or ``rolled``. ``dense_tests``: every live a-row
+    of each chunk against the window lanes its ``rpw`` rows cover
+    (:func:`window_tests`). ``tests``: what these inputs need after an
+    exact cull, the masks kernel's first: for each such lane and each
+    32-row mask word, the word's live a-rows if the lane meets the word's
+    union box (min lo, max hi over its live a-rows, xlo below +inf) and,
+    on the self offset, lies past one of them, else none."""
+    import torch
+
+    inf = float("inf")
+    ncols, mc = plan.gxy ** 2, plan.mc
+    comps = plan.stream[:, :6, :].permute(1, 0, 2).reshape(6, -1)
+    starts = plan.starts.long()
+    w0 = plan.w0.reshape(ncols, mc, 5).long()
+    wc = plan.wcap.reshape(ncols, mc, 5).long()
+    dev = comps.device
+    k = torch.arange(rpw * 128, device=dev)
+    tests = 0
+    step = max(1, (1 << 22) // (mc * 5 * rpw * 128))
+    for c0 in range(0, ncols, step):
+        c1 = min(ncols, c0 + step)
+        g0 = starts[c0:c1, None] + torch.arange(mc, device=dev) * 64
+        alen = (starts[c0 + 1:c1 + 1, None] - g0).clamp(0, 64)     # [b, mc]
+        i = g0[..., None] + torch.arange(64, device=dev)
+        a = comps[:, i.clamp(max=comps.shape[1] - 1)]             # [6, b, mc, 64]
+        live = (torch.arange(64, device=dev) < alen[..., None]) & (a[0] < inf)
+        ulo = torch.where(live, a[:3], inf).unflatten(-1, (2, 32)).amin(-1)
+        uhi = torch.where(live, a[3:], -inf).unflatten(-1, (2, 32)).amax(-1)
+        w, n = w0[c0:c1, :, :, None], wc[c0:c1, :, :, None]
+        # The window lanes j = w + k, k below the lanes the rows cover.
+        if rolled:
+            lanes = n.clamp(max=rpw * 128)
+        else:
+            lanes = torch.minimum(w + n, (w // 128 + rpw) * 128) - w
+        j = w + k                                                 # [b, mc, 5, L]
+        in_win = k < lanes
+        b = comps[:, j.clamp(max=comps.shape[1] - 1)][..., None]  # [6, ..., 1]
+        at = (slice(None), slice(None), slice(None), None, None)
+        meets = ((uhi[at] > b[:3]) & (ulo[at] < b[3:])).all(0)    # [..., 2]
+        below = j[..., None] - g0[:, :, None, None, None] \
+            - torch.tensor([0, 32], device=dev) > 0
+        meets[:, :, 0] &= below[:, :, 0]
+        per_word = torch.stack([alen.clamp(max=32), (alen - 32).clamp(min=0)],
+                               -1)[:, :, None, None, :]
+        tests += int(((meets & in_win[..., None]) * per_word).sum())
+    return tests, window_tests(plan.starts, plan.w0, plan.wcap, mc, 5, rpw,
+                               rolled)
+
+
+def big_visits(bigs, stream):
+    """(visit, nvis): bool [Rp, nbc], the big chunks each stream row
+    visits, and their number a row."""
+    import torch
+    from collision_tpu_torch.kernels import bigpass
+
+    c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
+    c = torch.arange(bigs[0].shape[0], device=stream.device)
+    visit = (c < n_always) | ((c >= c0[:, None]) & (c < c1[:, None]))
+    return visit, (n_always + c1 - c0).long()
+
+
+def big_tests(bigs, stream, rows=None):
     """(tests, dense_tests) of the big pass. ``dense_tests``: 64 x 128 per
     (stream row, visited big chunk), every big against every lane.
     ``tests``: what these inputs need, the bigs of each visited chunk
     that meet the row's union box (min lo, max hi over its live lanes,
-    xlo below +inf) times 128, as the count kernel culls them."""
+    xlo below +inf) times 128, as the kernels cull them. With ``rows``
+    (bool per stream row), only those rows count, as the emission skips
+    the others."""
     import torch
-    from collision_tpu_torch.kernels import bigpass
 
-    rows = bigs[0]
-    c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
-    dense = int((n_always + c1 - c0).long().sum()) * 64 * 128
+    table = bigs[0]
+    visit, nvis = big_visits(bigs, stream)
     inf = float("inf")
     live = (stream[:, 0, :] < inf)[:, None, :]
     ulo = torch.where(live, stream[:, 0:3, :], inf).amin(-1)[:, None, None]
     uhi = torch.where(live, stream[:, 3:6, :], -inf).amax(-1)[:, None, None]
-    c = torch.arange(rows.shape[0], device=stream.device)
-    visit = (c < n_always) | ((c >= c0[:, None]) & (c < c1[:, None]))
-    meets = ((rows[None, :, :, 3:6] > ulo) & (rows[None, :, :, 0:3] < uhi)) \
+    meets = ((table[None, :, :, 3:6] > ulo) & (table[None, :, :, 0:3] < uhi)) \
         .all(-1)                                          # [Rp, nbc, 64]
-    return int((meets & visit[..., None]).sum()) * 128, dense
+    per_row = (meets & visit[..., None]).sum((1, 2))
+    if rows is not None:
+        per_row, nvis = per_row[rows], nvis[rows]
+    return int(per_row.sum()) * 128, int(nvis.sum()) * 64 * 128
 
 
 def big_row_counts(bigs, stream):
@@ -335,6 +414,84 @@ def big_row_counts(bigs, stream):
     want = bigpass._tile_hits_plain(bigs[0], c0, c1, n_always, stream, 0,
                                     stream.shape[0]).sum((1, 2, 3))
     return got, want
+
+
+def column_plan_work(plan, rpw, label, count_rpw):
+    """The column masks kernel against its plain version on one plan at
+    ``rpw`` rows, and the bounds there of the column count kernels at
+    ``count_rpw`` rows (rolled and aligned rows: stream and tables read
+    once) and of the masks kernel (the masks written once), each by the
+    tests an exact cull leaves (:func:`mask_tests`; beside them the
+    window's)."""
+    import torch
+    from collision_tpu_torch.kernels import sweep
+
+    masks = sweep.sweep_masks(plan, rpw)
+    check(torch.equal(masks, sweep.sweep_masks_plain(plan, rpw)),
+          f"{label}: column masks kernel == plain at rpw {rpw}")
+    tables = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap)
+    out = {}
+    for rolled, name in ((True, "count_rolled"), (False, "count_aligned")):
+        tests, window = mask_tests(plan, count_rpw, rolled)
+        by = bound(tables + 8, tests)
+        out[name] = {"tests": tests, "dense_tests": window, "bound_ms": by[0],
+                     "bound_by": by[1], **bounds(tables + 8, tests)}
+    tests, window = mask_tests(plan, rpw)
+    by = bound(tables + nbytes(masks), tests)
+    out["masks"] = {"tests": tests, "dense_tests": window,
+                    "bound_ms": by[0], "bound_by": by[1],
+                    **bounds(tables + nbytes(masks), tests)}
+    phase("column_plan_work", plan=label, rpw=rpw, count_rpw=count_rpw,
+          **out)
+
+
+def big_emit_launcher(bigs, stream, capacity):
+    """(launch, inputs): a raw launch of the big emission kernel, outside
+    the wrappers' launch counts, on the row counts, ranges and first
+    slots that one count launch gives; ``inputs`` holds those tensors
+    (counts, c0, c1, bases)."""
+    import torch
+    from collision_tpu_torch.kernels import _build, bigpass
+
+    counts = torch.empty((stream.shape[0],), dtype=torch.int32,
+                         device=stream.device)
+    c0, c1, n_always = bigpass.count_launch(bigs, stream, counts, None)
+    bases = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    ida = torch.empty((capacity,), dtype=torch.int32, device=stream.device)
+    idb = torch.empty_like(ida)
+
+    def launch():
+        # The closure holds the tensors, so their memory stays theirs.
+        _build.launch("big_emit_launch", bigs[0].data_ptr(), c0.data_ptr(),
+                      c1.data_ptr(), n_always, stream.data_ptr(),
+                      stream.shape[0], counts.data_ptr(), bases.data_ptr(),
+                      capacity, ida.data_ptr(), idb.data_ptr())
+    return launch, (counts, c0, c1, bases)
+
+
+def big_emit_pass(bigs, stream, capacity):
+    """The emission kernel of ``big_pairs`` alone: its queued launch time
+    and its bound. By bytes: the row counts and first slots of every row;
+    for the rows it runs (a pair, a first slot below ``capacity``) their
+    ranges and channels 0-6 of their lanes; the big chunks those rows
+    visit, once; two int32 ids written a pair below ``capacity``. By
+    operations: the culled tests of those rows (beside them 64 x 128 a
+    visited chunk of those rows)."""
+    import torch
+
+    launch, (counts, c0, c1, bases) = big_emit_launcher(bigs, stream, capacity)
+    run = (counts > 0) & (bases < capacity)
+    visit, _ = big_visits(bigs, stream)
+    nrun = int(run.sum())
+    pairs = min(int(counts.sum()), capacity)
+    moved = nbytes(counts, bases) \
+        + nrun * (nbytes(stream[0, :7]) + c0.element_size() + c1.element_size()) \
+        + int(visit[run].any(0).sum()) * nbytes(bigs[0][0]) + 8 * pairs
+    tests, dense = big_tests(bigs, stream, run)
+    bound_ms, bound_by = bound(moved, tests)
+    return {"ms": time_ms(launch, batch=KERNEL_BATCH), "bound_ms": bound_ms,
+            "bound_by": bound_by, **bounds(moved, tests), "tests": tests,
+            "dense_tests": dense, "rows_run": nrun, "pairs": pairs}
 
 
 def powerlaw_scene(n, dev):
@@ -551,15 +708,17 @@ def dense_fill(dev, record, launches):
     err = max_abs_err(B, B_plain)
     del B_plain
     # Row 7's bound at this plan: the stream and tables read once, the
-    # masks written once, and every live a-row against the window lanes.
-    mask_tests = window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5,
-                              route["rpw"], False)
+    # masks written once, and the tests the kernel's cull leaves (beside
+    # them every live a-row against the window lanes).
+    mask_culled, mask_window = mask_tests(plan, route["rpw"])
+    mask_bytes = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap, B)
     record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
            "collision_tpu/kernels/sweep.py:382", err,
            lambda: sweep.sweep_masks(plan, route["rpw"]),
            lambda: sweep.sweep_masks_plain(plan, route["rpw"]),
-           nbytes(plan.stream, plan.starts, plan.w0, plan.wcap, B),
-           mask_tests, plain_batch=1, plain_reps=1)
+           mask_bytes, mask_culled, plain_batch=1, plain_reps=1,
+           dense_tests=mask_window,
+           extra={"bound": bounds(mask_bytes, mask_culled)})
     rp = pair_emit.row_popcounts(B)
     rp_plain = pair_emit.row_popcounts_plain(B)
     check(torch.equal(rp, rp_plain),
@@ -595,7 +754,8 @@ def dense_fill(dev, record, launches):
            nbytes(B) + 16 * DENSE_CAPACITY, 0, plain_batch=1, plain_reps=1)
     phase("dense_fill", n=DENSE_N, r_max=DENSE_R, capacity=DENSE_CAPACITY,
           count=int(count), count_only=int(count_only), attempts=attempts,
-          launches=run, mask_words=B.numel(), mask_window_tests=mask_tests,
+          launches=run, mask_words=B.numel(), mask_window_tests=mask_window,
+          mask_culled_tests=mask_culled,
           step_ms=step_ms,
           pair_emit_uint32_bound_ms=uint32_bound_ms,
           exact_attempt_ms=exact_ms, peak_bytes=peak,
@@ -699,8 +859,8 @@ def grid_kernels_agree(bins, gd, mc, label):
 def big_kernels_agree(bigs, stream, label):
     """The big count kernel against its plain version on one table and
     stream: the total, the row counts, and big_pairs' buffers at room
-    for every pair and cut inside the pairs. Returns (max_abs_err,
-    total)."""
+    for every pair, cut inside the pairs and at one slot. Returns
+    (max_abs_err, total)."""
     import torch
     from collision_tpu_torch.kernels import bigpass
 
@@ -712,7 +872,7 @@ def big_kernels_agree(bigs, stream, label):
     got, want = big_row_counts(bigs, stream)
     err = max(abs(int(tot) - total), max_abs_err(got, want))
     same = True
-    for capacity in (total + 64, total // 2 + 1):
+    for capacity in (total + 64, total // 2 + 1, 1):
         a = bigpass.big_pairs(bigs, stream, capacity)
         b = bigpass.big_pairs_plain(bigs, stream, capacity)
         same &= all(torch.equal(x, y) for x, y in zip(a, b))
@@ -722,17 +882,21 @@ def big_kernels_agree(bigs, stream, label):
 
 
 def cull_edges(dev):
-    """The grid count and big count kernels against their plain versions
-    at the edges of their cull (collision_tpu_torch/testing/scenes.py:
-    boxes touching across cell faces and one ulp across, radii of half a
-    cell, a 305-row cell beside an empty one; bigs on the faces of the
-    rows' union boxes, a row of pad lanes, a row of parked lanes) and on
-    the dense oracle scene's grid (65536 spheres, radii U(0, 0.06), grid_dim
-    8, cell_capacity 192: two 128-row chunks, a cull that keeps most
+    """The grid count, column masks and big pass kernels against their
+    plain versions at the edges of their cull
+    (collision_tpu_torch/testing/scenes.py: boxes touching across cell or
+    column faces and one ulp across, radii of half a cell, a 305-row cell
+    beside an empty one, a full column beside an empty one, chunks that
+    end inside a mask word; bigs on the faces of the rows' union boxes, a
+    row of pad lanes, a row of parked lanes) and on the dense oracle
+    scene's grid (65536 spheres, radii U(0, 0.06), grid_dim 8,
+    cell_capacity 192: two 128-row chunks, a cull that keeps most
     rows)."""
     import torch
-    from collision_tpu_torch import grid
-    from collision_tpu_torch.testing.scenes import (GRID_SCENES,
+    from collision_tpu_torch import columns, grid
+    from collision_tpu_torch.kernels import sweep
+    from collision_tpu_torch.testing.scenes import (COLUMN_SCENES,
+                                                    GRID_SCENES,
                                                     touching_big_pass)
 
     t0 = time.perf_counter()
@@ -748,6 +912,22 @@ def cull_edges(dev):
     check(bool(ok), f"dense grid {DENSE_GRID}: bins ok")
     totals["dense_grid"] = grid_kernels_agree(bins, *DENSE_GRID,
                                               "dense grid")[1]
+    for name, scene in COLUMN_SCENES.items():
+        coords, radii, gxy, cap = scene()
+        gxy, default_cap, rows = columns.default_column_config(len(coords),
+                                                               gxy=gxy)
+        plan = columns.plan_columns(torch.from_numpy(coords).to(dev),
+                                    torch.from_numpy(radii).to(dev), gxy,
+                                    cap or default_cap, rows)
+        check(bool(plan.ok), f"{name}: column plan ok")
+        words = 0
+        for rpw in (1, int(plan.rows_needed)):
+            got = sweep.sweep_masks(plan, rpw)
+            err = max_abs_err(got, sweep.sweep_masks_plain(plan, rpw))
+            check(err == 0, f"{name}: column masks kernel == plain at rpw "
+                  f"{rpw} (max_abs_err {err})")
+            words = int(got.ne(0).sum())
+        totals[name + "_mask_words"] = words
     *table, stream = touching_big_pass()
     bigs = tuple(torch.from_numpy(a).to(dev) for a in table)
     totals["touching_big_pass"] = big_kernels_agree(
@@ -1096,11 +1276,12 @@ def main():
 
     def record(name, source, replaces, err, fn, plain_fn, moved, tests,
                library_fn=None, plain_batch=KERNEL_BATCH, plain_reps=10,
-               dense_tests=None):
+               dense_tests=None, extra=None):
         check(err == 0, f"{name}: kernel == plain (max_abs_err {err})")
         bound_ms, bound_by = bound(moved, tests)
-        extra = {} if dense_tests is None else {"tests": tests,
-                                                "dense_tests": dense_tests}
+        extra = dict(extra or {})
+        if dense_tests is not None:
+            extra.update(tests=tests, dense_tests=dense_tests)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1191,6 +1372,7 @@ def main():
         plain_col_fill = collide(coords, radii, CAPACITY, method="column")
     check(int(plain_col_count.count) == int(col_count.count),
           "column count == plain path's count")
+    column_plan_work(cplan, 2, f"column n={N}", 2)
     check(torch.equal(plain_col_fill.pairs, col_fill.pairs),
           "column fill pairs == plain path's pairs, bit for bit")
 
@@ -1240,14 +1422,14 @@ def main():
     col_in = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap)
     for rolled, name, line in ((True, "sweep_count_rolled", 226),
                                (False, "sweep_count_aligned", 78)):
+        tests, window = mask_tests(plan, 2, rolled)
         record(name, "collision_tpu_torch/csrc/sweep.cu",
                f"collision_tpu/kernels/sweep.py:{line}",
                abs(int(sweep.sweep_count(plan, 2, rolled))
                    - int(sweep.sweep_count_plain(plan, 2, rolled))),
                lambda: sweep.sweep_count(plan, 2, rolled),
                lambda: sweep.sweep_count_plain(plan, 2, rolled), col_in + 8,
-               window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2,
-                            rolled))
+               tests, dense_tests=window)
     # (sweep_masks' record: the dense exact plan, where its largest
     # launches are; see dense_fill)
     masks = sweep.sweep_masks(plan, 2)
@@ -1256,8 +1438,7 @@ def main():
     del plain_masks
     phase("column_masks_262144", ms=time_ms(lambda: sweep.sweep_masks(plan, 2),
                                             batch=KERNEL_BATCH),
-          bound_ms=bound(col_in + nbytes(masks), window_tests(
-              plan.starts, plan.w0, plan.wcap, plan.mc, 5, 2, False))[0])
+          bound_ms=bound(col_in + nbytes(masks), mask_tests(plan, 2)[0])[0])
 
     # --- column step times, kernel path and plain path ---
     for n_s, (c, r) in ((AUTO_SCENES[0][0], auto_scenes[AUTO_SCENES[0][0]]),
@@ -1293,6 +1474,9 @@ def main():
         knobs = HETERO_ROUTES[name][0]
         if knobs[0] == "column":
             hplan = columns.plan_columns(c, parked, *knobs[1:4])
+            # The S-S count runs the rolled kernel one row short of the
+            # fill's rung (hetero.hetero_collide).
+            column_plan_work(hplan, knobs[4], name, knobs[4] - 1)
         else:
             hplan = slabs.plan_slabs(c, parked,
                                      *slabs.default_slab_config(N, gx=knobs[1]))
@@ -1310,7 +1494,9 @@ def main():
                         "pairs_ms": time_ms(
                             lambda: bigpass.big_pairs(bigs, stream,
                                                       HETERO_CAPACITY),
-                            batch=KERNEL_BATCH)}
+                            batch=KERNEL_BATCH),
+                        "emit_pass": big_emit_pass(bigs, stream,
+                                                   HETERO_CAPACITY)}
     bigs, stream = big_plans["hetero_powerlaw"]
     tests, dense = big_tests(bigs, stream)
     big_in = nbytes(*bigs, stream)
@@ -1324,6 +1510,7 @@ def main():
     want = bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY)
     check(int(got[1].ne(0xFFFFFFFF).sum()) == int(got[2]) > 0,
           f"big_pairs: {int(got[2])} pairs, every one written")
+    emit = fields["hetero_powerlaw"]["emit_pass"]
     record("big_pairs", "collision_tpu_torch/csrc/bigpass.cu",
            "collision_tpu/kernels/bigpass.py:87",
            max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
@@ -1331,7 +1518,7 @@ def main():
            lambda: bigpass.big_pairs(bigs, stream, HETERO_CAPACITY),
            lambda: bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY),
            big_in + 8 * HETERO_CAPACITY + 8, tests, plain_batch=2,
-           dense_tests=dense)
+           dense_tests=dense, extra={"emit_pass": emit})
     phase("big_kernel_plan", n=N, plans=fields,
           seconds=time.perf_counter() - t0)
 

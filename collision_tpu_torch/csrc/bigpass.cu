@@ -30,15 +30,17 @@
 //
 // The pairs take two passes: that count, then an exclusive scan of the
 // row counts on the stream (the wrapper's torch.cumsum, no host sync)
-// gives each row its first slot, and the emission kernel tests again and
-// writes each hit at its rank in the TPU kernel's order: rows ascending,
-// chunks in visit order, then word h = 0 before h = 1 (a-rows 0-31, then
-// 32-63), lanes ascending, bits ascending. It stages each visited chunk's
-// 64 bigs in shared memory, component-major, tests them all with the
-// tile test of tile_test.cuh (not culled yet), and one block-wide scan of
-// the lanes' popcounts per (chunk, word) gives each thread its slots.
-// The TPU kernels' vector accumulator, SMEM scalars, 8-row union ranges
-// and sequential pair cursor have no use here and are gone.
+// gives each row its first slot, and the emission kernel writes each hit
+// at its rank in the TPU kernel's order: rows ascending, chunks in visit
+// order, then word h = 0 before h = 1 (a-rows 0-31, then 32-63), lanes
+// ascending, bits ascending. It skips the rows the count found empty and
+// culls the visited bigs against the row's union box as the count does;
+// a mask word with no survivor costs no test and no scan, and the
+// survivors keep their bit positions, so the order is the TPU kernel's.
+// One block-wide scan of the lanes' popcounts per surviving word gives
+// each thread its slots. The TPU kernels' vector accumulator, SMEM
+// scalars, 8-row union ranges and sequential pair cursor have no use
+// here and are gone.
 //
 // Built without --use_fast_math: the test is a compare of floats that the
 // plan computed, and must match the CPU bit for bit.
@@ -52,22 +54,7 @@ namespace {
 using tile::CHUNK;
 using tile::LANE;
 
-constexpr int BIG_COLS = 8;   // big table channels per box
 constexpr int WARPS = LANE / 32;
-
-// Big chunk c's 64 boxes, component-major, and their ids, into shared
-// memory (coalesced: the chunk is 512 consecutive floats).
-__device__ __forceinline__ void load_bigs(const float* __restrict__ bigs,
-                                          int c, float (*sa)[CHUNK],
-                                          int* __restrict__ sid) {
-  const float* rows = bigs + static_cast<long long>(c) * CHUNK * BIG_COLS;
-  for (int idx = threadIdx.x; idx < CHUNK * BIG_COLS; idx += blockDim.x) {
-    const int r = idx / BIG_COLS, comp = idx % BIG_COLS;
-    const float v = rows[idx];
-    if (comp < 6) sa[comp][r] = v;
-    else if (comp == 6) sid[r] = __float_as_int(v);
-  }
-}
 
 // Chunk t of a row's visit list: the giants 0..n_always-1, then c0..c1-1.
 __device__ __forceinline__ int visit_chunk(int t, int n_always, int c0) {
@@ -166,46 +153,94 @@ big_count_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
   }
 }
 
-// The set bits of one tile word, ascending, at slots slot, slot + 1, ...
-// below capacity: (big id of a-row a0 + bit, the lane's id).
-__device__ __forceinline__ void emit_word(uint32_t bits, int a0,
-                                          long long slot, int capacity,
-                                          const int* __restrict__ sid,
-                                          int lane_id, int* __restrict__ ida,
-                                          int* __restrict__ idb) {
-  for (; bits && slot < capacity; bits &= bits - 1, ++slot) {
-    ida[slot] = sid[a0 + __ffs(bits) - 1];
-    idb[slot] = lane_id;
-  }
-}
-
+// Row r's pairs, from its first slot bases[r], in the TPU kernel's
+// order. A row with no pair (counts[r] == 0) or whose first slot is past
+// capacity leaves at once. Its visited bigs go in rounds of 128, one a
+// thread, as in the count: each is tested against the row's union box,
+// a ballot per warp gives the survivors of one 32-big mask word (round
+// word w = visit words 4*round + w: chunks in visit order, h = 0 before
+// h = 1), and the survivors are staged at their own positions, two
+// float4 each, in one of two buffers (so one barrier a round). A word
+// with no survivor is skipped by the whole block. For the others each
+// thread tests its lane against the word's survivors in bit order, two
+// broadcast 16-byte loads a test, and one block-wide scan of the lanes'
+// popcounts gives each thread its slots: lanes ascending, bits
+// ascending. The cull drops only tests that fail, so at every capacity
+// the buffers are those of a kernel that tests every visited big.
 __global__ void __launch_bounds__(LANE)
 big_emit_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
                 const int* __restrict__ c1, int n_always,
-                const float* __restrict__ s,
+                const float* __restrict__ s, const int* __restrict__ counts,
                 const long long* __restrict__ bases, int capacity,
                 int* __restrict__ ida, int* __restrict__ idb) {
   const int row = blockIdx.x;
   long long cur = bases[row];   // the same in every thread of the block
-  if (cur >= capacity) return;
-  __shared__ float sa[6][CHUNK];
-  __shared__ int sid[CHUNK];
+  if (counts[row] == 0 || cur >= capacity) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __shared__ float4 sv[2][2 * LANE];   // two rounds' survivors
+  __shared__ unsigned skeep[2][WARPS];
+  __shared__ cull::Box wu[WARPS + 1];  // the warps' unions, the row's
   const int p = row * LANE + threadIdx.x;
   const tile::Box b = tile::load_box(s, p);
-  const int lane_id = __float_as_int(tile::stream_comp(s, p, 6));
-  const int lo = c0[row], nvis = n_always + (c1[row] - lo);
-  for (int t = 0; t < nvis && cur < capacity; ++t) {
-    __syncthreads();   // the previous chunk's readers are done
-    load_bigs(bigs, visit_chunk(t, n_always, lo), sa, sid);
+  {
+    cull::Box u = cull::empty();
+    cull::add(u, b);
+    u = cull::warp_union(u);
+    if (lane == 0) wu[warp] = u;
     __syncthreads();
-    const uint32_t w0 = tile::tile_bits(sa, 0, 32, b, false, 0, 0);
-    const uint32_t w1 = tile::tile_bits(sa, 32, CHUNK, b, false, 0, 0);
-    int n0, n1;
-    const int off0 = scan::block_exclusive_scan(__popc(w0), &n0);
-    const int off1 = scan::block_exclusive_scan(__popc(w1), &n1);
-    emit_word(w0, 0, cur + off0, capacity, sid, lane_id, ida, idb);
-    emit_word(w1, 32, cur + n0 + off1, capacity, sid, lane_id, ida, idb);
-    cur += n0 + n1;
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) cull::merge(u, wu[w]);
+      wu[WARPS] = u;
+    }
+    __syncthreads();
+  }
+  const cull::Box& u = wu[WARPS];   // read where it is needed
+
+  const int lo = c0[row];
+  const int nv = (n_always + (c1[row] - lo)) * CHUNK;   // bigs visited
+  const float4* rows = reinterpret_cast<const float4*>(bigs);
+  for (int v0 = 0, buf = 0; v0 < nv && cur < capacity; v0 += LANE, buf ^= 1) {
+    const int v = v0 + threadIdx.x;
+    bool in = false;
+    if (v < nv) {
+      const long long r = static_cast<long long>(
+          visit_chunk(v / CHUNK, n_always, lo)) * CHUNK + v % CHUNK;
+      const float4 pl = rows[2 * r], ql = rows[2 * r + 1];
+      // xlo ylo zlo xhi | yhi zhi id pad
+      tile::Box a;
+      a.lo[0] = pl.x; a.lo[1] = pl.y; a.lo[2] = pl.z;
+      a.hi[0] = pl.w; a.hi[1] = ql.x; a.hi[2] = ql.y;
+      in = cull::meets(a, u);
+      if (in) {
+        sv[buf][2 * threadIdx.x] = make_float4(pl.x, pl.y, pl.z, ql.z);
+        sv[buf][2 * threadIdx.x + 1] = make_float4(pl.w, ql.x, ql.y, ql.w);
+      }
+    }
+    const unsigned keep = __ballot_sync(cull::FULL, in);
+    if (lane == 0) skeep[buf][warp] = keep;
+    __syncthreads();   // publishes the round; the round before last is read
+    for (int w = 0; w < WARPS && cur < capacity; ++w) {
+      const unsigned k = skeep[buf][w];
+      if (k == 0u) continue;   // the same in every thread
+      const float4* word = sv[buf] + 2 * 32 * w;
+      uint32_t bits = 0u;
+      for (unsigned m = k; m; m &= m - 1) {
+        const int t = __ffs(m) - 1;
+        const float4 l = word[2 * t], h = word[2 * t + 1];
+        const bool hit = (h.x > b.lo[0]) & (l.x < b.hi[0]) &
+                         (h.y > b.lo[1]) & (l.y < b.hi[1]) &
+                         (h.z > b.lo[2]) & (l.z < b.hi[2]);
+        bits |= static_cast<uint32_t>(hit) << t;
+      }
+      int n;
+      long long slot = cur + scan::block_exclusive_scan(__popc(bits), &n);
+      for (; bits && slot < capacity; bits &= bits - 1, ++slot) {
+        ida[slot] = __float_as_int(word[2 * (__ffs(bits) - 1)].w);
+        idb[slot] = __float_as_int(tile::stream_comp(s, p, 6));
+      }
+      cur += n;
+    }
   }
 }
 
@@ -225,14 +260,17 @@ extern "C" int big_count_launch(const float* bigs, const int* c0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The pairs of each row at its first slot bases[row]; slots at or past
-// capacity are not written.
+// The pairs of each row at its first slot bases[row], from the count
+// pass's row counts; slots at or past capacity are not written.
 extern "C" int big_emit_launch(const float* bigs, const int* c0,
                                const int* c1, int n_always, const float* s,
-                               int rows, const long long* bases, int capacity,
+                               int rows, const int* counts,
+                               const long long* bases, int capacity,
                                int* ida, int* idb, void* stream) {
+  if (reinterpret_cast<uintptr_t>(bigs) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0 && capacity > 0)
     big_emit_kernel<<<rows, LANE, 0, static_cast<cudaStream_t>(stream)>>>(
-        bigs, c0, c1, n_always, s, bases, capacity, ida, idb);
+        bigs, c0, c1, n_always, s, counts, bases, capacity, ida, idb);
   return static_cast<int>(cudaGetLastError());
 }

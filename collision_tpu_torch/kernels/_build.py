@@ -56,9 +56,9 @@ _ARGTYPES = {
     "compact_tile": [],
     # bigs, c0, c1, n_always, stream, rows, counts, total, cuda stream
     "big_count_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
-    # bigs, c0, c1, n_always, stream, rows, bases, capacity, ida, idb,
-    # cuda stream
-    "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+    # bigs, c0, c1, n_always, stream, rows, counts, bases, capacity, ida,
+    # idb, cuda stream
+    "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     # mask, wstart, cb, ids, nsort, row ends, rows, capacity, ida, idb,
     # cuda stream
     "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _P],

@@ -14,9 +14,10 @@ nothing.
 
 On a CUDA tensor each wrapper launches its kernels from
 ``csrc/bigpass.cu``; on a CPU tensor it runs the plain PyTorch version
-beside it. The count kernel (also the first pass of ``big_pairs``) tests
-a big against a row's lanes only if it meets the row's union box, an
-exact cull; the emission kernel tests every visited big. The JAX
+beside it. Both kernels (the count, also the first pass of
+``big_pairs``, and the emission) test a big against a row's lanes only
+if it meets the row's union box, an exact cull; the emission skips the
+rows the count found empty. The JAX
 package pads the stream to 256-row blocks for its grid; the port does
 not (pad rows hit nothing and emit nothing).
 """
@@ -172,7 +173,8 @@ def big_pairs(bigs, stream, capacity):
     bases = torch.cumsum(counts, 0, dtype=torch.int64) - counts
     _build.launch("big_emit_launch", bigs[0].data_ptr(), c0.data_ptr(),
                   c1.data_ptr(), n_always, stream.data_ptr(), nrows,
-                  bases.data_ptr(), capacity, ida.data_ptr(), idb.data_ptr())
+                  counts.data_ptr(), bases.data_ptr(), capacity,
+                  ida.data_ptr(), idb.data_ptr())
     _build.LAUNCHES["big_pairs"] += 1
     return (ida.long() & 0xFFFFFFFF, idb.long() & 0xFFFFFFFF, total[0],
             total[0] < INT32_GUARD)

@@ -219,7 +219,9 @@ def sweep_masks(plan, rpw=2):
     ``mask_groups(mc, rpw)``: block c*NG + g, row ((kk*5 + off)*rpw + r)*2
     + h for chunk k = g*KG + kk, lane l = stream lane l of window row r,
     bit b = a-row h*32 + b. Every word is written; dead chunks are 0.
-    Exact iff ``plan.ok`` and ``plan.rows_needed <= rpw``.
+    Exact iff ``plan.ok`` and ``plan.rows_needed <= rpw``. The kernel
+    skips the tests of a mask word that an exact union-box cull shows to
+    be 0 (``csrc/sweep.cu``); the words are the plain version's.
     """
     if not plan.stream.is_cuda:
         return sweep_masks_plain(plan, rpw)

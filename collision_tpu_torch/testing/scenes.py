@@ -1,10 +1,11 @@
-"""Scenes at the edges of the exact cull of the grid count and the big
-pass (``csrc/cull.cuh``), as numpy float32 arrays.
+"""Scenes at the edges of the exact cull of the grid count, the column
+masks and the big pass (``csrc/cull.cuh``), as numpy float32 arrays.
 
 A row is tested against a cell or a stream row only if it meets that
 set's union box; these scenes put rows exactly on the union's faces, keep
-every row inside it, and leave cells and rows empty. Each grid scene
-comes with the (grid_dim, cell_capacity) it is meant for.
+every row inside it, and leave cells, columns and rows empty. Each grid
+scene comes with the (grid_dim, cell_capacity) it is meant for, each
+column scene with its gxy.
 """
 
 import numpy as np
@@ -61,6 +62,60 @@ def full_cell_beside_empty(seed=12):
 GRID_SCENES = {"touching_lattice": touching_lattice,
                "half_cell_radii": half_cell_radii,
                "full_cell_beside_empty": full_cell_beside_empty}
+
+
+def full_column_beside_empty(seed=14):
+    """300 spheres packed in column (1, 1) of a gxy 4 grid and 400
+    scattered ones that keep out of its +x neighbour, column (2, 1),
+    which stays empty. Returns (coords, radii, gxy, col_capacity)."""
+    rng = np.random.RandomState(seed)
+    cluster = rng.random((300, 3))
+    cluster[:, :2] = 0.27 + 0.2 * cluster[:, :2]
+    scattered = rng.random((2000, 3))
+    clear = ((scattered[:, 0] > 0.48) & (scattered[:, 0] < 0.77)
+             & (scattered[:, 1] > 0.23) & (scattered[:, 1] < 0.52))
+    scattered = scattered[~clear][:398]
+    coords = np.concatenate([cluster, scattered, [[0, 0, 0], [0.999] * 3]]) \
+        .astype(np.float32)
+    radii = np.concatenate([rng.uniform(0, 0.02, 300),
+                            rng.uniform(0, 0.05, 400)]).astype(np.float32)
+    return coords, radii, 4, 384
+
+
+def mid_word_chunks(seed=15):
+    """Four columns (gxy 2) of 81, 109, 50 and 30 spheres, radii U(0,
+    0.1): chunks of 17, 45, 50 and 30 live a-rows, whose last mask word
+    ends mid-word, in the first and in the second half. Returns (coords,
+    radii, gxy, col_capacity)."""
+    rng = np.random.RandomState(seed)
+    parts = []
+    for (cx, cy), k in zip(((0, 0), (0, 1), (1, 0), (1, 1)),
+                           (80, 109, 50, 29)):
+        c = rng.random((k, 3))
+        c[:, 0] = 0.02 + 0.45 * c[:, 0] + 0.5 * cx
+        c[:, 1] = 0.02 + 0.45 * c[:, 1] + 0.5 * cy
+        parts.append(c)
+    coords = np.concatenate(parts + [[[0, 0, 0], [1, 1, 1]]]) \
+        .astype(np.float32)
+    radii = rng.uniform(0, 0.1, len(coords)).astype(np.float32)
+    return coords, radii, 2, 128
+
+
+def _column_scene(grid_scene):
+    def scene():
+        coords, radii, gxy, _ = grid_scene()
+        return coords, radii, gxy, None
+    scene.__doc__ = grid_scene.__doc__
+    return scene
+
+
+#: The column masks' cull (a lane against a 32-row mask word's union
+#: box) at its edges: each scene returns (coords, radii, gxy,
+#: col_capacity or None for ``columns.default_column_config``'s).
+COLUMN_SCENES = {"touching_lattice": _column_scene(touching_lattice),
+                 "half_cell_radii": _column_scene(half_cell_radii),
+                 "full_column_beside_empty": full_column_beside_empty,
+                 "mid_word_chunks": mid_word_chunks}
 
 
 def _ids(ids):

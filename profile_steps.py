@@ -45,10 +45,12 @@ run-expansion fill). Prints one JSON line per reading:
   the trace.
 - ``top``: the largest device items of each step.
 - ``launch``: the grid count kernel at 1M (grid_dim 24 and 25, through
-  ``emit.count_launch``) and the big count kernel on the power-law and
-  giants routes' parked plans (a raw launch, row ranges computed once),
-  median of 15 samples of 20 calls in a row: the launches queue, so the
-  time is the kernel's device time.
+  ``emit.count_launch``), the big count and the big emission kernel on
+  the power-law and giants routes' parked plans (a raw launch, row
+  ranges, counts and first slots computed once) and the column masks
+  kernel on the dense exact plan (rpw 12) and the power-law route's
+  parked column plan (rpw 3), median of 15 samples of 20 calls in a
+  row: the launches queue, so the time is the kernel's device time.
 
 Exits non-zero when there is no CUDA device or the divisor check fails.
 """
@@ -130,15 +132,10 @@ def big_count_launcher(coords, radii, route):
     its hetero route (chip_smoke.HETERO_ROUTES), row ranges computed
     once."""
     import torch
-    from collision_tpu_torch import columns, hetero, slabs
     from collision_tpu_torch.kernels import _build, bigpass
 
-    _, _, parked, bigs = hetero._split(coords, radii, None)
-    if route[0] == "column":
-        stream = columns.plan_columns(coords, parked, *route[1:4]).stream
-    else:
-        stream = slabs.plan_slabs(coords, parked, *slabs.default_slab_config(
-            coords.shape[0], gx=route[1])).stream
+    bigs, plan = parked_plan(coords, radii, route)
+    stream = plan.stream
     c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
     total = torch.zeros((1,), dtype=torch.int64, device=stream.device)
 
@@ -147,6 +144,46 @@ def big_count_launcher(coords, radii, route):
         _build.launch("big_count_launch", bigs[0].data_ptr(), c0.data_ptr(),
                       c1.data_ptr(), n_always, stream.data_ptr(),
                       stream.shape[0], None, total.data_ptr())
+    return launch
+
+
+def parked_plan(coords, radii, route):
+    """(bigs, plan) of a scene's parked plan for its hetero route
+    (chip_smoke.HETERO_ROUTES)."""
+    from collision_tpu_torch import columns, hetero, slabs
+
+    _, _, parked, bigs = hetero._split(coords, radii, None)
+    if route[0] == "column":
+        return bigs, columns.plan_columns(coords, parked, *route[1:4])
+    return bigs, slabs.plan_slabs(coords, parked, *slabs.default_slab_config(
+        coords.shape[0], gx=route[1]))
+
+
+def big_emit_launcher(coords, radii, route, capacity):
+    """A raw launch of the big emission kernel on a scene's parked plan,
+    from row counts, ranges and first slots computed once."""
+    import chip_smoke
+
+    bigs, plan = parked_plan(coords, radii, route)
+    return chip_smoke.big_emit_launcher(bigs, plan.stream, capacity)[0]
+
+
+def column_masks_launcher(plan, rpw):
+    """A raw launch of the column masks kernel on a column plan, into
+    one buffer allocated once."""
+    import torch
+    from collision_tpu_torch.kernels import _build, sweep
+
+    ncols, mc = plan.gxy ** 2, plan.mc
+    kg, ng = sweep.mask_groups(mc, rpw)
+    out = torch.empty((ncols * ng, kg * sweep.NOFF * rpw * 2, 128),
+                      dtype=torch.int32, device=plan.stream.device)
+
+    def launch():
+        _build.launch("sweep_masks_launch", plan.stream.data_ptr(),
+                      plan.starts.data_ptr(), plan.w0.data_ptr(),
+                      plan.wcap.data_ptr(), ncols, mc, rpw, kg, ng,
+                      out.data_ptr())
     return launch
 
 
@@ -339,7 +376,22 @@ def main():
         "big_count_powerlaw": big_count_launcher(
             pl_coords, pl_radii, HETERO_ROUTES["hetero_powerlaw"][0]),
         "big_count_giants": big_count_launcher(
-            gi_coords, gi_radii, HETERO_ROUTES["hetero_giants"][0])}
+            gi_coords, gi_radii, HETERO_ROUTES["hetero_giants"][0]),
+        "big_emit_powerlaw": big_emit_launcher(
+            pl_coords, pl_radii, HETERO_ROUTES["hetero_powerlaw"][0],
+            HETERO_CAPACITY),
+        "big_emit_giants": big_emit_launcher(
+            gi_coords, gi_radii, HETERO_ROUTES["hetero_giants"][0],
+            HETERO_CAPACITY),
+        "column_masks_dense": column_masks_launcher(
+            columns.plan_columns(de_coords, de_radii, DENSE_ROUTE["gxy"],
+                                 DENSE_ROUTE["col_capacity"],
+                                 DENSE_ROUTE["slab_rows"]),
+            DENSE_ROUTE["rpw"]),
+        "column_masks_powerlaw": column_masks_launcher(
+            parked_plan(pl_coords, pl_radii,
+                        HETERO_ROUTES["hetero_powerlaw"][0])[1],
+            HETERO_ROUTES["hetero_powerlaw"][0][4])}
     for name, fn in launches.items():
         emit("launch", name=name, ms=queued(fn))
     return 0 if good else 1

@@ -16,6 +16,7 @@ from collision_tpu_torch import (Collider, collide, collide_exact, columns, fill
                                  grid, hetero, slabs)
 from collision_tpu_torch.kernels import (_build, batched, bigpass, compact, emit,
                                          halo, pair_emit, slab_sweep, sweep)
+from collision_tpu_torch.testing.scenes import COLUMN_SCENES as CULL_COLUMN_SCENES
 from collision_tpu_torch.testing.scenes import GRID_SCENES as CULL_GRID_SCENES
 from collision_tpu_torch.testing.scenes import touching_big_pass
 
@@ -169,13 +170,28 @@ COLUMN_SCENES = [
 ]
 
 
-@pytest.mark.parametrize("scene", COLUMN_SCENES)
+@pytest.mark.parametrize("scene", COLUMN_SCENES + [
+    # The masks' cull at its edges (testing/scenes.py): boxes touching
+    # across column faces and a ulp across; radii of half a column; a full
+    # column beside an empty one; chunks that end inside either mask word.
+    (name, None, None, None) for name in CULL_COLUMN_SCENES])
 def test_column_kernels_match_plain(cuda, scene):
     n, r_max, seed, gxy = scene
-    coords, radii = _scene(n, r_max, seed)
-    gxy, cap, rows = columns.default_column_config(n, gxy=gxy)
-    plan = columns.plan_columns(coords.to(cuda), radii.to(cuda), gxy, cap,
-                                rows)
+    cap = None
+    if isinstance(n, str):
+        coords, radii, gxy, cap = CULL_COLUMN_SCENES[n]()
+        coords, radii = torch.from_numpy(coords), torch.from_numpy(radii)
+    else:
+        coords, radii = _scene(n, r_max, seed)
+    gxy, default_cap, rows = columns.default_column_config(
+        coords.shape[0], gxy=gxy)
+    plan = columns.plan_columns(coords.to(cuda), radii.to(cuda), gxy,
+                                cap or default_cap, rows)
+    assert bool(plan.ok)
+    if n == "mid_word_chunks":
+        occ = plan.starts[1:gxy * gxy + 1] - plan.starts[:gxy * gxy]
+        ends = set((occ % 64).tolist())
+        assert ends & set(range(1, 32)) and ends & set(range(33, 64))
     for rpw in (1, int(plan.rows_needed)):
         for rolled, name in ((True, "sweep_count_rolled"),
                              (False, "sweep_count_aligned")):
@@ -187,6 +203,32 @@ def test_column_kernels_match_plain(cuda, scene):
         assert torch.equal(sweep.sweep_masks(plan, rpw),
                            sweep.sweep_masks_plain(plan, rpw))
         assert _build.LAUNCHES["sweep_masks"] == before + 1
+
+
+def test_column_masks_signed_zeros_and_nans(cuda):
+    # The masks kernel tests by the sign of float differences: boxes whose
+    # x bounds are +0 or -0 (touching at 0, no pair) and bounds that are
+    # NaN of either sign (no pair) must give the plain version's words.
+    coords, radii, gxy, cap = CULL_COLUMN_SCENES["mid_word_chunks"]()
+    gxy, _, rows = columns.default_column_config(len(coords), gxy=gxy)
+    plan = columns.plan_columns(torch.from_numpy(coords).to(cuda),
+                                torch.from_numpy(radii).to(cuda), gxy, cap,
+                                rows)
+    rng = np.random.RandomState(16)
+    stream = plan.stream.clone()
+    n = len(coords)
+    for p in rng.permutation(n)[: n // 2]:
+        r, l = divmod(int(p), 128)
+        stream[r, 0, l] = float(rng.choice([-0.0, 0.0]))
+        stream[r, 3, l] = float(rng.choice([-0.0, 0.0]))
+    for p in rng.permutation(n)[: n // 10]:
+        r, l = divmod(int(p), 128)
+        stream[r, rng.randint(6), l] = float(rng.choice([np.nan, -np.nan]))
+    plan = plan._replace(stream=stream)
+    for rpw in (1, 2):
+        got = sweep.sweep_masks(plan, rpw)
+        want = sweep.sweep_masks_plain(plan, rpw)
+        assert torch.equal(got, want) and int(want.ne(0).sum()) > 0
 
 
 @pytest.mark.parametrize("scene", COLUMN_SCENES)
@@ -211,12 +253,33 @@ def _power_law(n=1500, seed=0):
     return torch.from_numpy(coords), torch.from_numpy(radii)
 
 
-@pytest.mark.parametrize("engine", ["column", "slab", "touching"])
+def _word_cut(bigs, stream):
+    """A capacity that ends inside a mask word: half way into the first
+    (row, visited chunk, word), in the emission order, that has two pairs
+    or more and starts at a third of the total or later."""
+    c0, c1, n_always = bigpass._row_ranges(stream, bigs[1], bigs[2])
+    m = bigpass._tile_hits_plain(bigs[0], c0, c1, n_always, stream, 0,
+                                 stream.shape[0])
+    per_word = m.view(*m.shape[:2], 2, 32, -1).sum((3, 4)).reshape(-1)
+    start = torch.cumsum(per_word, 0) - per_word
+    w = int(torch.nonzero((per_word >= 2)
+                          & (start >= int(per_word.sum()) // 3))[0])
+    return int(start[w]) + int(per_word[w]) // 2
+
+
+@pytest.mark.parametrize("engine", ["column", "slab", "touching",
+                                    "zero_rows"])
 def test_big_kernels_match_plain(cuda, engine):
     # "touching": bigs on the faces of the rows' union boxes, a row of pad
     # lanes only and a row of parked lanes (testing/scenes.py).
-    if engine == "touching":
+    # "zero_rows": its rows with pairs, each followed by a copy moved 4 in
+    # x, whose live lanes visit the same chunks and meet no big.
+    if engine in ("touching", "zero_rows"):
         *table, stream = touching_big_pass()
+        if engine == "zero_rows":
+            far = stream.copy()
+            far[:, [0, 3]] += np.float32(4)
+            stream = np.stack([stream, far], 1).reshape(-1, *stream.shape[1:])
         bigs = tuple(torch.from_numpy(a).to(cuda) for a in table)
         stream = torch.from_numpy(stream).to(cuda)
     else:
@@ -241,13 +304,16 @@ def test_big_kernels_match_plain(cuda, engine):
     want_rows = bigpass._tile_hits_plain(bigs[0], c0, c1, n_always, stream,
                                          0, stream.shape[0]).sum((1, 2, 3))
     assert torch.equal(rows.long(), want_rows)
-    for capacity in (int(tot) + 100, int(tot) // 2 + 1, 1):
+    if engine == "zero_rows":
+        assert want_rows[1::2].eq(0).all() and want_rows[0::2].gt(0).sum() > 1
+    cut = _word_cut(bigs, stream)
+    for capacity in (int(tot) + 100, int(tot) // 2 + 1, 1, cut):
         got = bigpass.big_pairs(bigs, stream, capacity)
         want = bigpass.big_pairs_plain(bigs, stream, capacity)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert _build.LAUNCHES["big_count"] == before["big_count"] + 1
-    assert _build.LAUNCHES["big_pairs"] == before["big_pairs"] + 3
+    assert _build.LAUNCHES["big_pairs"] == before["big_pairs"] + 4
 
 
 def test_slab_kernels_at_two_rows_match_plain(cuda):
@@ -378,6 +444,22 @@ def test_row_popcounts_on_the_dense_exact_plan(cuda):
     rp = pair_emit.row_popcounts(B)
     assert torch.equal(rp, pair_emit.row_popcounts_plain(B))
     assert int(rp.sum()) == 107_651_273
+
+
+def test_sweep_masks_on_the_dense_exact_plan(cuda):
+    # The same plan: every word of the culled kernel's 0.87 GB of masks
+    # against the plain version's.
+    rng = np.random.RandomState(4)
+    n = 307_200
+    coords = torch.from_numpy(rng.random((n, 3)).astype("float32")).to(cuda)
+    radii = torch.from_numpy(
+        rng.uniform(0, 0.06, n).astype("float32")).to(cuda)
+    plan = columns.plan_columns(coords, radii, 14, 4608, 295)
+    assert bool(plan.ok) and int(plan.rows_needed) <= 12
+    before = _build.LAUNCHES["sweep_masks"]
+    B = sweep.sweep_masks(plan, 12)
+    assert _build.LAUNCHES["sweep_masks"] == before + 1
+    assert torch.equal(B, sweep.sweep_masks_plain(plan, 12))
 
 
 def test_collider_on_card_matches_cpu(cuda):

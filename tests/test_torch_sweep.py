@@ -12,6 +12,7 @@ from collision_tpu.kernels import sweep as jsweep
 from collision_tpu_torch import columns
 from collision_tpu_torch.kernels import sweep
 from collision_tpu_torch.testing import brute_force_collisions
+from collision_tpu_torch.testing.scenes import COLUMN_SCENES
 
 SCENES = {
     # n, r_max, seed, gxy
@@ -25,11 +26,19 @@ CASES = [("uniform", 1), ("uniform", 2), ("wide", 8)]
 
 
 def _plans(name):
-    n, r_max, seed, gxy = SCENES[name]
-    rng = np.random.RandomState(seed)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, r_max, n).astype("float32")
-    gxy, cap, rows = columns.default_column_config(n, gxy=gxy)
+    """Numpy scene, JAX plan and port plan of a scene of SCENES or of
+    the column masks' cull edges (testing/scenes.py)."""
+    if name in COLUMN_SCENES:
+        coords, radii, gxy, cap = COLUMN_SCENES[name]()
+        n = len(coords)
+    else:
+        n, r_max, seed, gxy = SCENES[name]
+        rng = np.random.RandomState(seed)
+        coords = rng.random((n, 3)).astype("float32")
+        radii = rng.uniform(0, r_max, n).astype("float32")
+        cap = None
+    gxy, default_cap, rows = columns.default_column_config(n, gxy=gxy)
+    cap = cap or default_cap
     jp = jcolumns.plan_columns(jnp.asarray(coords), jnp.asarray(radii), gxy,
                                cap, rows)
     d = {k: np.asarray(v) if hasattr(v, "shape") else v
@@ -55,7 +64,11 @@ def test_sweep_count_plain_matches_pallas(scene, rpw, rolled):
         assert int(got) < len(brute_force_collisions(coords, radii))
 
 
-@pytest.mark.parametrize("scene,rpw", CASES)
+# The masks also at the edges of the card kernel's cull: boxes touching
+# across column faces and a ulp across, and a full column beside an
+# empty one.
+@pytest.mark.parametrize("scene,rpw", CASES + [
+    ("touching_lattice", 2), ("full_column_beside_empty", 1)])
 def test_sweep_masks_plain_matches_pallas(scene, rpw):
     _, _, jp, tp = _plans(scene)
     want = np.asarray(jsweep.sweep_masks(jp, rpw=rpw, interpret=True))
