@@ -78,9 +78,11 @@ timed with CUDA events:
 the steps one call at a time (closed loop), each kernel and its plain
 version over back-to-back calls. Each kernel's record holds its bound:
 the larger of the bytes it must move (inputs read once, outputs written
-once) at the H100's 3.35 TB/s and its box tests (six float compares
-each, counted from this run's window and chunk tables) at 67 TFLOP/s
-float32; the pair emission's bytes are the mask words read once and two
+once; of the [Rp, 8, 128] stream only the channels the kernel reads:
+the boxes' six for the sweep kernels and the big count, the ids too
+for the big pairs) at the H100's 3.35 TB/s and its box tests (six
+float compares each, counted from this run's window and chunk tables)
+at 67 TFLOP/s float32; the pair emission's bytes are the mask words read once and two
 int64 ids written per output slot, sentinels included, and the row
 counts' the mask words read once and one int64 count a row. The grid
 and big kernels' tests are what these inputs need: occ * (occ - 1) / 2
@@ -90,10 +92,15 @@ a stream row and a big chunk it visits the chunk's bigs that meet the
 row's union box times 128, as the count kernels cull them; their
 records print the live tests beside
 (``dense_tests``: occ(a) * occ(b), 64 x 128 a visited big chunk). The
-column kernels' tests, the counts' and the masks', are each window
-lane's against the 32-row mask words whose union box it meets (beside
-them, ``dense_tests``, every live a-row against the window), and the
-masks' record gives both times of the bound; ``big_pairs``' record adds
+sweep kernels' tests, the column and the slab counts' and masks', are
+each window lane's against the 32-row mask words whose union box it
+meets (beside them, ``dense_tests``, every live a-row against the
+window; the slab kernels run all of those), and these records give
+both times of the bound; the diagonal count's phase adds the bound of
+its cross-only slab count. The column count kernels are checked and
+timed on the 1M column plan (their records), on ``auto``'s 262144 plan
+and on the power-law parked plan (``column_plan_work`` lines, beside
+the masks kernel); ``big_pairs``' record adds
 its emission pass alone (``emit_pass``: a queued launch, its bound and
 tests, on the rows it runs: a pair, a first slot below the capacity;
 the bytes are those rows' channels 0-6 and ranges, the big chunks they
@@ -282,6 +289,19 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def stream_bytes(stream, channels=6):
+    """Bytes of ``channels`` of the [Rp, 8, 128] stream's 8 channels: the
+    sweep kernels and the big count read the boxes' six (0-5), never the
+    ids (6) or channel 7."""
+    return nbytes(stream) * channels // 8
+
+
+def sweep_bytes(plan):
+    """Bytes a sweep kernel reads of a slab or column plan: the stream's
+    box channels and the window and chunk tables, once."""
+    return stream_bytes(plan.stream) + nbytes(plan.starts, plan.w0, plan.wcap)
+
+
 def bounds(moved, tests):
     """{"bytes_ms", "operations_ms"}: the times a kernel that moves
     ``moved`` bytes and runs ``tests`` box tests takes at least, on the
@@ -297,9 +317,10 @@ def bound(moved, tests):
         else (b["operations_ms"], "operations")
 
 
-def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
+def window_tests(starts, w0, wcap, mc, noff, rpw, rolled, first_off=0):
     """Box tests a sweep kernel runs on a plan: each live a-row of each
-    chunk against the window lanes its ``rpw`` rows cover."""
+    chunk against the window lanes its ``rpw`` rows cover, on offsets
+    ``first_off`` .. noff-1."""
     import torch
 
     nb = w0.numel() // (mc * noff)
@@ -311,32 +332,35 @@ def window_tests(starts, w0, wcap, mc, noff, rpw, rolled):
         lanes = wc.clamp(max=rpw * 128)
     else:
         lanes = (torch.minimum(w + wc, (w // 128 + rpw) * 128) - w).clamp(min=0)
-    return int((alen[..., None] * lanes).sum())
+    return int((alen[..., None] * lanes[..., first_off:]).sum())
 
 
-def mask_tests(plan, rpw, rolled=False):
-    """(tests, dense_tests) of a column kernel on a plan at ``rpw``
-    window rows, aligned or ``rolled``. ``dense_tests``: every live a-row
-    of each chunk against the window lanes its ``rpw`` rows cover
-    (:func:`window_tests`). ``tests``: what these inputs need after an
-    exact cull, the masks kernel's first: for each such lane and each
+def mask_tests(plan, rpw, rolled=False, noff=5, first_off=0, dmin=0):
+    """(tests, dense_tests) of a sweep kernel on a column plan (``noff``
+    5) or a slab plan (``noff`` 2) at ``rpw`` window rows, aligned or
+    ``rolled``, on offsets ``first_off`` .. noff-1. ``dense_tests``: every
+    live a-row of each chunk against the window lanes its ``rpw`` rows
+    cover (:func:`window_tests`). ``tests``: what these inputs need after
+    an exact cull, the column kernels' first: for each such lane and each
     32-row mask word, the word's live a-rows if the lane meets the word's
     union box (min lo, max hi over its live a-rows, xlo below +inf) and,
-    on the self offset, lies past one of them, else none."""
+    on the self offset (on every offset when ``dmin`` > 0), lies more than
+    ``dmin`` past one of them, else none."""
     import torch
 
     inf = float("inf")
-    ncols, mc = plan.gxy ** 2, plan.mc
+    mc = plan.mc
+    nb = plan.w0.numel() // (mc * noff)
     comps = plan.stream[:, :6, :].permute(1, 0, 2).reshape(6, -1)
     starts = plan.starts.long()
-    w0 = plan.w0.reshape(ncols, mc, 5).long()
-    wc = plan.wcap.reshape(ncols, mc, 5).long()
+    w0 = plan.w0.reshape(nb, mc, noff)[:, :, first_off:].long()
+    wc = plan.wcap.reshape(nb, mc, noff)[:, :, first_off:].long()
     dev = comps.device
     k = torch.arange(rpw * 128, device=dev)
     tests = 0
-    step = max(1, (1 << 22) // (mc * 5 * rpw * 128))
-    for c0 in range(0, ncols, step):
-        c1 = min(ncols, c0 + step)
+    step = max(1, (1 << 22) // (mc * noff * rpw * 128))
+    for c0 in range(0, nb, step):
+        c1 = min(nb, c0 + step)
         g0 = starts[c0:c1, None] + torch.arange(mc, device=dev) * 64
         alen = (starts[c0 + 1:c1 + 1, None] - g0).clamp(0, 64)     # [b, mc]
         i = g0[..., None] + torch.arange(64, device=dev)
@@ -350,19 +374,22 @@ def mask_tests(plan, rpw, rolled=False):
             lanes = n.clamp(max=rpw * 128)
         else:
             lanes = torch.minimum(w + n, (w // 128 + rpw) * 128) - w
-        j = w + k                                                 # [b, mc, 5, L]
+        j = w + k                                              # [b, mc, noff, L]
         in_win = k < lanes
         b = comps[:, j.clamp(max=comps.shape[1] - 1)][..., None]  # [6, ..., 1]
         at = (slice(None), slice(None), slice(None), None, None)
         meets = ((uhi[at] > b[:3]) & (ulo[at] < b[3:])).all(0)    # [..., 2]
         below = j[..., None] - g0[:, :, None, None, None] \
-            - torch.tensor([0, 32], device=dev) > 0
-        meets[:, :, 0] &= below[:, :, 0]
+            - torch.tensor([0, 32], device=dev) > dmin
+        if dmin:
+            meets &= below
+        elif first_off == 0:
+            meets[:, :, 0] &= below[:, :, 0]
         per_word = torch.stack([alen.clamp(max=32), (alen - 32).clamp(min=0)],
                                -1)[:, :, None, None, :]
         tests += int(((meets & in_win[..., None]) * per_word).sum())
-    return tests, window_tests(plan.starts, plan.w0, plan.wcap, mc, 5, rpw,
-                               rolled)
+    return tests, window_tests(plan.starts, plan.w0, plan.wcap, mc, noff,
+                               rpw, rolled, first_off)
 
 
 def big_visits(bigs, stream):
@@ -417,32 +444,43 @@ def big_row_counts(bigs, stream):
 
 
 def column_plan_work(plan, rpw, label, count_rpw):
-    """The column masks kernel against its plain version on one plan at
-    ``rpw`` rows, and the bounds there of the column count kernels at
-    ``count_rpw`` rows (rolled and aligned rows: stream and tables read
-    once) and of the masks kernel (the masks written once), each by the
-    tests an exact cull leaves (:func:`mask_tests`; beside them the
-    window's)."""
+    """The column kernels against their plain versions on one plan: the
+    masks at ``rpw`` rows, the counts at ``count_rpw`` rows (rolled and
+    aligned rows). Each is timed over back-to-back calls (``ms``, the
+    wrapper included) and bounded there (the stream's box channels and
+    the tables read once, the masks written once) by the tests an exact
+    cull leaves (:func:`mask_tests`; beside them the window's). Returns
+    the fields by name (``count_rolled``, ``count_aligned``, ``masks``)."""
     import torch
     from collision_tpu_torch.kernels import sweep
 
     masks = sweep.sweep_masks(plan, rpw)
     check(torch.equal(masks, sweep.sweep_masks_plain(plan, rpw)),
           f"{label}: column masks kernel == plain at rpw {rpw}")
-    tables = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap)
+    tables = sweep_bytes(plan)
     out = {}
     for rolled, name in ((True, "count_rolled"), (False, "count_aligned")):
+        got = int(sweep.sweep_count(plan, count_rpw, rolled))
+        want = int(sweep.sweep_count_plain(plan, count_rpw, rolled))
+        check(got == want, f"{label}: column {name} kernel {got} == plain "
+              f"{want} at rpw {count_rpw}")
         tests, window = mask_tests(plan, count_rpw, rolled)
         by = bound(tables + 8, tests)
-        out[name] = {"tests": tests, "dense_tests": window, "bound_ms": by[0],
+        out[name] = {"count": got, "max_abs_err": abs(got - want),
+                     "ms": time_ms(lambda: sweep.sweep_count(
+                         plan, count_rpw, rolled), batch=KERNEL_BATCH),
+                     "tests": tests, "dense_tests": window, "bound_ms": by[0],
                      "bound_by": by[1], **bounds(tables + 8, tests)}
     tests, window = mask_tests(plan, rpw)
     by = bound(tables + nbytes(masks), tests)
-    out["masks"] = {"tests": tests, "dense_tests": window,
+    out["masks"] = {"ms": time_ms(lambda: sweep.sweep_masks(plan, rpw),
+                                  batch=KERNEL_BATCH),
+                    "tests": tests, "dense_tests": window,
                     "bound_ms": by[0], "bound_by": by[1],
                     **bounds(tables + nbytes(masks), tests)}
     phase("column_plan_work", plan=label, rpw=rpw, count_rpw=count_rpw,
           **out)
+    return out
 
 
 def big_emit_launcher(bigs, stream, capacity):
@@ -707,11 +745,12 @@ def dense_fill(dev, record, launches):
     B_plain = sweep.sweep_masks_plain(plan, route["rpw"])
     err = max_abs_err(B, B_plain)
     del B_plain
-    # Row 7's bound at this plan: the stream and tables read once, the
-    # masks written once, and the tests the kernel's cull leaves (beside
-    # them every live a-row against the window lanes).
+    # Row 7's bound at this plan: the stream's box channels and the
+    # tables read once, the masks written once, and the tests the
+    # kernel's cull leaves (beside them every live a-row against the
+    # window lanes).
     mask_culled, mask_window = mask_tests(plan, route["rpw"])
-    mask_bytes = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap, B)
+    mask_bytes = sweep_bytes(plan) + nbytes(B)
     record("sweep_masks", "collision_tpu_torch/csrc/sweep.cu",
            "collision_tpu/kernels/sweep.py:382", err,
            lambda: sweep.sweep_masks(plan, route["rpw"]),
@@ -1125,6 +1164,11 @@ def diag_path(dev, record, launches, coords, radii, expected):
            lambda: slab_sweep.diag_count(*dargs),
            lambda: slab_sweep.diag_count_plain(*dargs),
            moved, tests, plain_batch=2)
+    # The cross-only slab count that slab_count_diag launches (offset x+1,
+    # j > i + d_max): the tests an exact per-word cull would leave.
+    cross, cross_window = mask_tests(plan, 1, True, noff=2, first_off=1,
+                                     dmin=DIAG_D_MAX)
+    cross_bound = bounds(sweep_bytes(plan) + 8, cross)
 
     steps = {
         "diag_step_ms": time_ms(lambda: slab_sweep.slab_count_diag(
@@ -1137,7 +1181,9 @@ def diag_path(dev, record, launches, coords, radii, expected):
     }
     phase("diag", n=N, d_max=DIAG_D_MAX, gx=plan.gx, count=int(count),
           ok=bool(ok), diagonal=int(got[0]), flagged=int(got[1]),
-          launches=run, box_tests=tests, flag_scene_n=n_f,
+          launches=run, box_tests=tests,
+          cross_only={"tests": cross, "dense_tests": cross_window,
+                      **cross_bound}, flag_scene_n=n_f,
           flag_scene_flagged=int(fflag), flag_scene_count=int(fcount),
           flag_scene_pairs=len(f_expected), **steps,
           seconds=time.perf_counter() - t0)
@@ -1292,14 +1338,19 @@ def main():
             "library_ms": None if library_fn is None
             else time_ms(library_fn, batch=KERNEL_BATCH), **extra})
 
-    sweep_in = nbytes(*args)
+    # Rows 1-2's bounds: the tests an exact per-word union-box cull would
+    # leave on the slab plan (the kernels run every window test: beside
+    # them as dense_tests).
+    sweep_in = sweep_bytes(plan)
+    slab_tests, slab_window = mask_tests(plan, 1, True, noff=2)
     cnt = slab_sweep.slab_window_count(*args)
     record("slab_count", "collision_tpu_torch/csrc/slab_sweep.cu",
            "collision_tpu/kernels/slab_sweep.py:157",
            abs(int(cnt) - int(slab_sweep.slab_window_count_plain(*args))),
            lambda: slab_sweep.slab_window_count(*args),
            lambda: slab_sweep.slab_window_count_plain(*args), sweep_in + 8,
-           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 2, 1, True))
+           slab_tests, dense_tests=slab_window,
+           extra={"bound": bounds(sweep_in + 8, slab_tests)})
     masks = slab_sweep.slab_masks(*args)
     plain_masks = slab_sweep.slab_masks_plain(*args)
     check(torch.equal(masks, plain_masks), "slab_masks: torch.equal")
@@ -1308,8 +1359,8 @@ def main():
            max_abs_err(masks, plain_masks),
            lambda: slab_sweep.slab_masks(*args),
            lambda: slab_sweep.slab_masks_plain(*args),
-           sweep_in + nbytes(masks),
-           window_tests(plan.starts, plan.w0, plan.wcap, plan.mc, 2, 1, True))
+           sweep_in + nbytes(masks), slab_tests, dense_tests=slab_window,
+           extra={"bound": bounds(sweep_in + nbytes(masks), slab_tests)})
     small = slabs.residual_row_mask(plan)[0].reshape(-1)
     dense = torch.rand(small.numel(), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(SEED)) < 0.03
@@ -1372,9 +1423,20 @@ def main():
         plain_col_fill = collide(coords, radii, CAPACITY, method="column")
     check(int(plain_col_count.count) == int(col_count.count),
           "column count == plain path's count")
-    column_plan_work(cplan, 2, f"column n={N}", 2)
     check(torch.equal(plain_col_fill.pairs, col_fill.pairs),
           "column fill pairs == plain path's pairs, bit for bit")
+    # The count kernels' records: the column engine's 1M plan, where the
+    # main path runs the rolled one.
+    work = column_plan_work(cplan, 2, f"column n={N}", 2)
+    col_in = sweep_bytes(cplan)
+    for rolled, name, line in ((True, "sweep_count_rolled", 226),
+                               (False, "sweep_count_aligned", 78)):
+        w = work["count_rolled" if rolled else "count_aligned"]
+        record(name, "collision_tpu_torch/csrc/sweep.cu",
+               f"collision_tpu/kernels/sweep.py:{line}", w["max_abs_err"],
+               lambda: sweep.sweep_count(cplan, 2, rolled),
+               lambda: sweep.sweep_count_plain(cplan, 2, rolled), col_in + 8,
+               w["tests"], plain_batch=2, dense_tests=w["dense_tests"])
 
     # --- auto below the slab crossovers ---
     auto_scenes = {}
@@ -1412,33 +1474,17 @@ def main():
                   f"auto n={n_auto} capacity {TRUNC_CAPACITY}: distinct "
                   "oracle pairs")
 
-    # --- each column kernel against its plain version at auto's fill
-    # plan (262144 spheres) ---
+    # --- the column kernels against their plain versions at auto's fill
+    # plan (262144 spheres); sweep_masks' record: the dense exact plan,
+    # where its largest launches are (dense_fill) ---
     a, ar = auto_scenes[AUTO_SCENES[0][0]]
     plan = columns.plan_columns(a, ar, *columns.default_column_config(
         AUTO_SCENES[0][0]))
     phase("column_kernel_plan", n=AUTO_SCENES[0][0], gxy=plan.gxy, mc=plan.mc,
           rows_needed=int(plan.rows_needed), rows_rolled=int(plan.rows_rolled))
-    col_in = nbytes(plan.stream, plan.starts, plan.w0, plan.wcap)
-    for rolled, name, line in ((True, "sweep_count_rolled", 226),
-                               (False, "sweep_count_aligned", 78)):
-        tests, window = mask_tests(plan, 2, rolled)
-        record(name, "collision_tpu_torch/csrc/sweep.cu",
-               f"collision_tpu/kernels/sweep.py:{line}",
-               abs(int(sweep.sweep_count(plan, 2, rolled))
-                   - int(sweep.sweep_count_plain(plan, 2, rolled))),
-               lambda: sweep.sweep_count(plan, 2, rolled),
-               lambda: sweep.sweep_count_plain(plan, 2, rolled), col_in + 8,
-               tests, dense_tests=window)
-    # (sweep_masks' record: the dense exact plan, where its largest
-    # launches are; see dense_fill)
-    masks = sweep.sweep_masks(plan, 2)
-    plain_masks = sweep.sweep_masks_plain(plan, 2)
-    check(torch.equal(masks, plain_masks), "sweep_masks: torch.equal")
-    del plain_masks
-    phase("column_masks_262144", ms=time_ms(lambda: sweep.sweep_masks(plan, 2),
-                                            batch=KERNEL_BATCH),
-          bound_ms=bound(col_in + nbytes(masks), mask_tests(plan, 2)[0])[0])
+    work = column_plan_work(plan, 2, f"auto n={AUTO_SCENES[0][0]}", 2)
+    phase("column_masks_262144", ms=work["masks"]["ms"],
+          bound_ms=work["masks"]["bound_ms"])
 
     # --- column step times, kernel path and plain path ---
     for n_s, (c, r) in ((AUTO_SCENES[0][0], auto_scenes[AUTO_SCENES[0][0]]),
@@ -1499,7 +1545,9 @@ def main():
                                                    HETERO_CAPACITY)}
     bigs, stream = big_plans["hetero_powerlaw"]
     tests, dense = big_tests(bigs, stream)
-    big_in = nbytes(*bigs, stream)
+    # The big table and the stream's box channels (the pairs also read
+    # the ids).
+    big_in = nbytes(*bigs) + stream_bytes(stream)
     err = errs["hetero_powerlaw"]
     record("big_count", "collision_tpu_torch/csrc/bigpass.cu",
            "collision_tpu/kernels/bigpass.py:281", err,
@@ -1517,7 +1565,8 @@ def main():
                abs(int(got[2]) - int(want[2]))),
            lambda: bigpass.big_pairs(bigs, stream, HETERO_CAPACITY),
            lambda: bigpass.big_pairs_plain(bigs, stream, HETERO_CAPACITY),
-           big_in + 8 * HETERO_CAPACITY + 8, tests, plain_batch=2,
+           big_in + stream_bytes(stream, 1) + 8 * HETERO_CAPACITY + 8,
+           tests, plain_batch=2,
            dense_tests=dense, extra={"emit_pass": emit})
     phase("big_kernel_plan", n=N, plans=fields,
           seconds=time.perf_counter() - t0)

@@ -7,25 +7,51 @@
 // _make_masks_kernel (the masks that fill.mask_fill decodes, reached
 // through sweep_masks).
 //
-// The count: one 128-thread block per (column, chunk) with the tile test
-// of tile_test.cuh; a lane outside its window loads nothing and tests
-// nothing, so the mostly empty second row of a rolled window costs a
-// branch, not 64 tests. At 1M uniform spheres (gxy=26, ~15.6k live
-// chunks, rpw=2) that is at most ~1.3G tests, while the bytes read are
-// the 32 MB stream plus window re-reads that stay in the 50 MB L2: bound
-// by instruction throughput, not by HBM. The count adds one integer atomic
-// per block, so the total is deterministic.
+// Both kernels run the tile test of column_tile.cuh: a chunk's a-rows and
+// their 32-row union boxes in shared memory, a warp's 64 window lanes in
+// registers, two exact union-box culls and a test by the sign bits of
+// float differences. Left to test after the culls: 32,968,557 lane tests
+// on the 1M uniform column plan (rpw 2) of 318,497,478 in its windows,
+// 36,834,276 of 493,952,126 on the power-law plan, 517,483,206 of
+// 1,179,480,689 on the reference's dense plan (rpw 12).
 //
-// The masks: on the reference's dense plan (307200 spheres, rpw 12) the
-// window holds 1.18G tests and the masks are 0.87 GB, two thirds of it
-// the zeros of dead chunk slots. With the tile test's six 4-byte shared
-// loads a test, the kernel was bound by shared-load throughput (~7G lane
-// loads), and then by its float compares, which run at half rate. Its
-// own body (column_masks_kernel) reads an a-row with two 16-byte
-// broadcast loads for two window lanes a thread, tests only what two
-// exact culls leave (a lane against a mask word's union box, an a-row
-// against the warp's lanes' union box; 0.52G lane tests are left on the
-// dense plan), and tests with float adds and ands.
+// The count stores nothing but its total. A window's lanes are one index
+// range, [w, w + min(wc, rpw*128)) for rolled rows and [w, min(w + wc,
+// (w/128 + rpw)*128)) for aligned ones, walked in 64-lane segments from
+// floor(w/64)*64, so that each segment lies in one stream row; lanes of a
+// segment outside the range stay out of the union and the count. The
+// block's warps take the (offset, segment) units of its five windows in
+// turn. A thread sums the popcounts of its words in an int (a block
+// counts at most 64 x 5 x rpw*128: an int holds it up to rpw 128, the top
+// of the ladder); the block adds one integer atomic, so the total is
+// deterministic. Its bytes are the stream and the tables, read once, with
+// window re-reads that stay in the 50 MB L2: 0.0102 ms at 1M. On an H100
+// it takes about ten times that, held neither by those bytes nor by its
+// tests (0.003 ms of float adds) but by each block's chain of latencies
+// at 64 registers a thread (8 blocks an SM): the chunk's staging and a
+// barrier, then per unit the lane loads, a warp union, the two culls'
+// ballots and the survivors' shared loads. Both halves of a unit run
+// unrolled, for more to issue; scratch builds that prefetched the next
+// unit's lanes (80 registers), capped registers at 40 (spills), skipped
+// the loads of lanes outside the range, or moved the dense threshold
+// were no faster.
+//
+// The masks: on the reference's dense plan the masks are 0.87 GB, two
+// thirds of it the zeros of dead chunk slots, and the kernel is still
+// bound by its tests, not its stores. Block x = column * (ng * kg) +
+// chunk slot kq writes the slot's NOFF*rpw*2 rows of 128 words
+// (tile::masks_chunk's layout: row (off*rpw + r)*2 + h, word l = window
+// lane l of row r, bit t = a-row h*32 + t). Every word is written: slots
+// past mc and dead chunks write zeros, 16 bytes a store. Its warps take
+// the (offset, row, segment) units; a thread writes its two lanes' words
+// of each half with one 8-byte store, and a segment outside the window
+// writes zeros and loads nothing. The self offset's j > i and the window
+// are one mask a word. (On an H100, six compares in place of the sign-bit
+// test, the rest the same, are 1-4% slower on the dense, 1M and power-law
+// plans: masks_variants.py times both. Four lanes a thread, 16-byte
+// loads and stores and a 128-lane union, was as fast on the dense plan
+// and slower on the 1M and power-law plans; one lane a thread slower on
+// the dense plan.)
 //
 // rpw is a runtime loop bound. The TPU kernel's slab DMA ring, lane
 // rolls, chunk-pair transposes and unrolling have no use here and are
@@ -35,84 +61,73 @@
 // computed, or take their exact differences, which flushing subnormals
 // to zero would break, and must match the CPU bit for bit.
 
-#include "cull.cuh"
-#include "tile_test.cuh"
+#include "column_tile.cuh"
 
 namespace {
 
+using column::LPT;
+using column::SEG;
 using tile::CHUNK;
 using tile::LANE;
 
 constexpr int NOFF = 5;   // columns.COLUMN_OFFSETS
 
 // Block x = column * mc + chunk: one grid dimension, so gxy^2 * mc is the
-// only bound on the grid.
+// only bound on the grid. ROLLED picks the end of each window's range.
 template <bool ROLLED>
 __global__ void __launch_bounds__(LANE)
 column_count_kernel(const float* __restrict__ s, const int* __restrict__ starts,
                     const int* __restrict__ w0, const int* __restrict__ wcap,
                     int mc, int rpw, unsigned long long* __restrict__ total) {
-  tile::count_chunk<NOFF, ROLLED>(s, starts, w0, wcap, mc, rpw, 0, 0,
-                                  blockIdx.x / mc, blockIdx.x % mc, total);
-}
+  const int b = blockIdx.x / mc, k = blockIdx.x % mc;
+  const int a1 = starts[b + 1];
+  const int g0 = starts[b] + k * CHUNK;
+  if (g0 >= a1) return;
+  const int alen = min(a1 - g0, CHUNK);
 
-// The masks: block x = column * (ng * kg) + chunk slot kq, which writes
-// the slot's NOFF*rpw*2 rows of 128 words (tile::masks_chunk's layout:
-// row (off*rpw + r)*2 + h, word l = window lane l of row r, bit t =
-// a-row h*32 + t). Every word is written: slots past mc and dead chunks
-// write zeros, 16 bytes a store.
-//
-// A live chunk's 64 a-rows go to shared memory as two float4 each (lo
-// xyz + pad, hi xyz + pad), with the union box of each 32-row half, the
-// rows of one mask word (cull.cuh), and its five windows. The block's
-// warps then take the (offset, row, 64-lane segment) units in turn: a
-// thread holds LPT = 2 neighbouring window lanes of one row in registers
-// (one 8-byte load a component) and writes their two words of each half
-// with one 8-byte store; a segment outside the window writes zeros and
-// loads nothing. Two exact culls (cull.cuh) pick the tests a warp runs
-// for a half: none unless one of its lanes meets the half's union box,
-// and then only the a-rows that meet the union of its 64 lanes, the
-// survivors; each survivor's two broadcast 16-byte loads serve two
-// tests. With DENSE_SURVIVORS or more the warp tests all 32 a-rows in
-// an unrolled loop instead, without the survivor loop's bookkeeping.
-// The self offset's j > i and the window are one mask a word.
-//
-// The test runs no float compare, which runs at half rate: a < b iff
-// the sign bit of a - b is set, for a and b free of -0, which x + 0.0f
-// turns into +0. A nonzero exact difference is never rounded to zero,
-// x - x is +0, and the card's float add returns the NaN 0x7fffffff, sign
-// clear, for a NaN operand and for inf - inf (equal infinities, where a
-// < b is false). So a pair overlaps iff the six differences b.lo - a.hi
-// and a.lo - b.hi share a set sign bit: six float adds and three ands.
-// (On an H100, six compares in their place, the rest the same, are 1-4%
-// slower on the dense, 1M and power-law plans: masks_variants.py times
-// both.)
-//
-// (On an H100 the kernel is bound by those tests, not by its stores:
-// four lanes a thread, 16-byte loads and stores and a 128-lane union,
-// was as fast on the dense plan and slower on the 1M and power-law
-// plans; one lane a thread slower on the dense plan.)
-constexpr int LPT = 2;                     // window lanes a thread
-constexpr int SEG = LANE / (32 * LPT);     // warp units a window row
-constexpr int DENSE_SURVIVORS = 20;
+  __shared__ float4 slo[CHUNK], shi[CHUNK];
+  __shared__ cull::Box half_union[2];
+  __shared__ int win[NOFF][3];   // each window's range [js, je), segments
+  if (threadIdx.x < CHUNK) {
+    column::stage_chunk(s, g0, alen, slo, shi, half_union);
+  } else if (threadIdx.x < CHUNK + NOFF) {
+    const int off = threadIdx.x - CHUNK;
+    const long long e = (static_cast<long long>(b) * mc + k) * NOFF + off;
+    const int w = w0[e], wc = wcap[e];
+    const int je = ROLLED ? w + min(wc, rpw * LANE)
+                          : min(w + wc, (w / LANE + rpw) * LANE);
+    win[off][0] = w;
+    win[off][1] = je;
+    win[off][2] = je > w ? (je + SEG - 1) / SEG - w / SEG : 0;
+  }
+  __syncthreads();
 
-__device__ __forceinline__ uint32_t below_mask(int k) {   // bits [0, k)
-  return k <= 0 ? 0u : k >= 32 ? ~0u : (1u << k) - 1u;
-}
-
-// The sign bit of x - y: set iff x < y, for x and y free of -0.
-__device__ __forceinline__ uint32_t less(float x, float y) {
-  return __float_as_uint(x - y);
-}
-
-// Sign bit set iff a-row (a, c) = (lo, hi) overlaps lane i.
-__device__ __forceinline__ uint32_t overlap(const float4& a, const float4& c,
-                                            const float (&lo)[3][LPT],
-                                            const float (&hi)[3][LPT],
-                                            int i) {
-  return less(lo[0][i], c.x) & less(a.x, hi[0][i]) &
-         less(lo[1][i], c.y) & less(a.y, hi[1][i]) &
-         less(lo[2][i], c.z) & less(a.z, hi[2][i]);
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  int units = 0;
+#pragma unroll
+  for (int off = 0; off < NOFF; ++off) units += win[off][2];
+  int hits = 0;
+  for (int unit = warp; unit < units; unit += LANE / 32) {
+    int off = 0, seg = unit;
+    while (seg >= win[off][2]) seg -= win[off][2], ++off;
+    const int js = win[off][0], je = win[off][1];
+    const int j0 = (js / SEG + seg) * SEG + lt * LPT;
+    cull::Box wu;
+    const column::Lanes t = column::load_lanes(s, j0, js, je, &wu);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // both halves at once: more to issue
+      const float4* al = slo + h * 32;
+      const float4* ah = shi + h * 32;
+      uint32_t word[LPT], keep[LPT];
+      column::test_rows(al, ah,
+                        column::survivors(al, ah, half_union[h], wu, t,
+                                          off == 0, j0 - g0 - 32 * h, keep),
+                        t, word);
+#pragma unroll
+      for (int i = 0; i < LPT; ++i) hits += __popc(word[i] & keep[i]);
+    }
+  }
+  tile::block_add(hits, total);
 }
 
 __global__ void __launch_bounds__(LANE)
@@ -139,21 +154,7 @@ column_masks_kernel(const float* __restrict__ s, const int* __restrict__ starts,
   __shared__ cull::Box half_union[2];
   __shared__ int win[NOFF][2];   // the offsets' window starts and lengths
   if (threadIdx.x < CHUNK) {     // warps 0 and 1: the two halves
-    const int r = threadIdx.x;
-    cull::Box a = cull::empty();
-    if (r < alen) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        a.lo[c] = tile::stream_comp(s, g0 + r, c) + 0.0f;
-        a.hi[c] = tile::stream_comp(s, g0 + r, c + 3) + 0.0f;
-      }
-    }
-    slo[r] = make_float4(a.lo[0], a.lo[1], a.lo[2], 0.0f);
-    shi[r] = make_float4(a.hi[0], a.hi[1], a.hi[2], 0.0f);
-    cull::Box u = cull::empty();
-    cull::add(u, a);
-    u = cull::warp_union(u);
-    if ((r & 31) == 0) half_union[r >> 5] = u;
+    column::stage_chunk(s, g0, alen, slo, shi, half_union);
   } else if (threadIdx.x < CHUNK + NOFF) {
     const long long e = (static_cast<long long>(b) * mc + kq) * NOFF
                         + threadIdx.x - CHUNK;
@@ -162,93 +163,37 @@ column_masks_kernel(const float* __restrict__ s, const int* __restrict__ starts,
   }
   __syncthreads();
 
+  constexpr int ROW_SEGS = LANE / SEG;   // warp units a window row
   const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
-  for (int unit = warp; unit < NOFF * rpw * SEG; unit += LANE / 32) {
-    const int item = unit / SEG, off = item / rpw, r = item % rpw;
+  for (int unit = warp; unit < NOFF * rpw * ROW_SEGS; unit += LANE / 32) {
+    const int item = unit / ROW_SEGS, off = item / rpw, r = item % rpw;
     const int w = win[off][0], wc = win[off][1];
-    const int srow = w / LANE + r;                       // stream row
-    const int l0 = (unit % SEG) * 32 * LPT + lt * LPT;   // first lane
+    const int srow = w / LANE + r;                        // stream row
+    const int l0 = (unit % ROW_SEGS) * SEG + lt * LPT;    // first lane
     const int j0 = srow * LANE + l0;
     uint2* row = reinterpret_cast<uint2*>(rows + (off * rpw + r) * 2 * LANE
                                           + l0);
     const int seg0 = j0 - lt * LPT;   // the warp's segment, uniform
-    if (wc == 0 || seg0 >= w + wc || seg0 + 32 * LPT <= w) {
+    if (wc == 0 || seg0 >= w + wc || seg0 + SEG <= w) {
       row[0] = make_uint2(0u, 0u);
       row[LANE / LPT] = make_uint2(0u, 0u);
       continue;
     }
-    // The lanes' boxes, component-major, and the union of those in the
-    // window.
-    float lo[3][LPT], hi[3][LPT];
-    const float* p = s + static_cast<long long>(srow) * 8 * LANE + l0;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float2 l = *reinterpret_cast<const float2*>(p + c * LANE);
-      const float2 h = *reinterpret_cast<const float2*>(p + (c + 3) * LANE);
-      lo[c][0] = l.x + 0.0f;
-      lo[c][1] = l.y + 0.0f;
-      hi[c][0] = h.x + 0.0f;
-      hi[c][1] = h.y + 0.0f;
-    }
-    uint32_t in_window[LPT];
-    cull::Box wu = cull::empty();
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const bool in = (j0 + i >= w) & (j0 + i < w + wc);
-      in_window[i] = in ? ~0u : 0u;
-      if (in) {
-        cull::Box l;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          l.lo[c] = lo[c][i];
-          l.hi[c] = hi[c][i];
-        }
-        cull::add(wu, l);
-      }
-    }
-    wu = cull::warp_union(wu);
+    cull::Box wu;
+    const column::Lanes t = column::load_lanes(s, j0, w, w + wc, &wu);
 #pragma unroll 1
     for (int h = 0; h < 2; ++h) {
-      const cull::Box u = half_union[h];
-      uint32_t word[LPT], keep[LPT];
-      bool need = false;
-#pragma unroll
-      for (int i = 0; i < LPT; ++i) {
-        word[i] = 0u;
-        keep[i] = in_window[i] &
-                  (off == 0 ? below_mask(j0 + i - g0 - 32 * h) : ~0u);
-        need |= keep[i] != 0u &&
-                (u.hi[0] > lo[0][i]) & (u.lo[0] < hi[0][i]) &
-                (u.hi[1] > lo[1][i]) & (u.lo[1] < hi[1][i]) &
-                (u.hi[2] > lo[2][i]) & (u.lo[2] < hi[2][i]);
-      }
-      // The survivors: this half's a-rows that meet the lanes' union.
       const float4* al = slo + h * 32;
       const float4* ah = shi + h * 32;
-      const float4 ml = al[lt], mh = ah[lt];
-      const bool meets = (mh.x > wu.lo[0]) & (ml.x < wu.hi[0]) &
-                         (mh.y > wu.lo[1]) & (ml.y < wu.hi[1]) &
-                         (mh.z > wu.lo[2]) & (ml.z < wu.hi[2]);
-      uint32_t surv = __ballot_sync(cull::FULL, meets);
-      if (!__any_sync(cull::FULL, need)) surv = 0u;
-      if (__popc(surv) >= DENSE_SURVIVORS) {
-        // Every a-row, bit 31 first: each result shifts in at bit 0.
-#pragma unroll 8
-        for (int t = 31; t >= 0; --t) {
-          const float4 a = al[t], c = ah[t];
-#pragma unroll
-          for (int i = 0; i < LPT; ++i)
-            word[i] = __funnelshift_l(overlap(a, c, lo, hi, i), word[i], 1);
-        }
-      } else {
-        for (; surv; surv &= surv - 1) {
-          const int t = __ffs(surv) - 1;
-          const float4 a = al[t], c = ah[t];
-#pragma unroll
-          for (int i = 0; i < LPT; ++i)
-            word[i] |= (overlap(a, c, lo, hi, i) & 0x80000000u) >> (31 - t);
-        }
-      }
+      // A register copy of the half's union: with the cull reading it
+      // from shared memory, ptxas gave this body 72 registers, not 67,
+      // and it ran slower on an H100.
+      const cull::Box hu = half_union[h];
+      uint32_t word[LPT], keep[LPT];
+      column::test_rows(al, ah,
+                        column::survivors(al, ah, hu, wu, t,
+                                          off == 0, j0 - g0 - 32 * h, keep),
+                        t, word);
       row[h * LANE / LPT] = make_uint2(word[0] & keep[0], word[1] & keep[1]);
     }
   }

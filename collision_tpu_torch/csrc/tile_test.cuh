@@ -1,4 +1,6 @@
-// The tile test shared by the sweep kernels (slab_sweep.cu, sweep.cu).
+// The tile test of the slab sweep kernels (slab_sweep.cu); the column
+// kernels (sweep.cu, column_tile.cuh) take its constants, stream_comp
+// and block_add.
 //
 // One 128-thread block takes one 64-sphere a-chunk of one bucket (a slab
 // or a column) of the [Rp, 8, 128] sorted stream. The chunk's boxes sit

@@ -180,7 +180,10 @@ def sweep_count_plain(plan, rpw=2, rolled=False):
 def sweep_count(plan, rpw=2, rolled=False):
     """int64 number of set tile-test entries of a column plan: the
     exact pair count iff ``plan.ok`` and ``plan.rows_needed <= rpw``
-    (aligned rows) or ``plan.rows_rolled <= rpw`` (``rolled=True``)."""
+    (aligned rows) or ``plan.rows_rolled <= rpw`` (``rolled=True``).
+    The kernel runs only the tests that an exact union-box cull leaves
+    and stores nothing but the total (``csrc/sweep.cu``); the count is
+    the plain version's."""
     if not plan.stream.is_cuda:
         return sweep_count_plain(plan, rpw, rolled)
     ncols, mc = _tables(plan)

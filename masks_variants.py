@@ -1,8 +1,9 @@
 """Times column_masks_kernel's overlap test against plain float compares.
 
-``csrc/sweep.cu`` tests a box pair by the sign bits of six float
-differences. This script builds the file twice with nvcc, as it is and
-with six compares in place of that test (the rest the same), and times
+``csrc/column_tile.cuh`` tests a box pair by the sign bits of six float
+differences. This script builds ``csrc/sweep.cu`` twice with nvcc, as it
+is and with six compares in place of that test in the header (the rest
+the same), and times
 both on the dense exact plan (rpw 12), the 1M column plan (rpw 2) and
 the power-law parked plan (rpw 3) of ``chip_smoke.py``, in turns (sign,
 compare, compare, sign, twice), each launch checked against
@@ -46,27 +47,27 @@ EDITS = (
     ("tile::stream_comp(s, g0 + r, c) + 0.0f", "tile::stream_comp(s, g0 + r, c)"),
     ("tile::stream_comp(s, g0 + r, c + 3) + 0.0f",
      "tile::stream_comp(s, g0 + r, c + 3)"),
-    ("lo[c][0] = l.x + 0.0f;", "lo[c][0] = l.x;"),
-    ("lo[c][1] = l.y + 0.0f;", "lo[c][1] = l.y;"),
-    ("hi[c][0] = h.x + 0.0f;", "hi[c][0] = h.x;"),
-    ("hi[c][1] = h.y + 0.0f;", "hi[c][1] = h.y;"),
-    ("word[i] = __funnelshift_l(overlap(a, c, lo, hi, i), word[i], 1);",
-     "word[i] = (word[i] << 1) | overlap(a, c, lo, hi, i);"),
-    ("word[i] |= (overlap(a, c, lo, hi, i) & 0x80000000u) >> (31 - t);",
-     "word[i] |= static_cast<uint32_t>(overlap(a, c, lo, hi, i)) << t;"),
+    ("t.lo[c][0] = l.x + 0.0f;", "t.lo[c][0] = l.x;"),
+    ("t.lo[c][1] = l.y + 0.0f;", "t.lo[c][1] = l.y;"),
+    ("t.hi[c][0] = h.x + 0.0f;", "t.hi[c][0] = h.x;"),
+    ("t.hi[c][1] = h.y + 0.0f;", "t.hi[c][1] = h.y;"),
+    ("word[i] = __funnelshift_l(overlap(a, c, t.lo, t.hi, i), word[i], 1);",
+     "word[i] = (word[i] << 1) | overlap(a, c, t.lo, t.hi, i);"),
+    ("word[i] |= (overlap(a, c, t.lo, t.hi, i) & 0x80000000u) >> (31 - r);",
+     "word[i] |= static_cast<uint32_t>(overlap(a, c, t.lo, t.hi, i)) << r;"),
 )
 
 
 def replace(text, old, new):
     if old not in text:
-        raise SystemExit(f"sweep.cu no longer holds {old!r}")
+        raise SystemExit(f"column_tile.cuh no longer holds {old!r}")
     return text.replace(old, new)
 
 
 def compare_source(src):
-    """sweep.cu with six compares in place of the sign-bit test."""
+    """column_tile.cuh with six compares in place of the sign-bit test."""
     first = src.index("// The sign bit of x - y")
-    last = src.index("__global__ void __launch_bounds__(LANE)\ncolumn_masks_kernel")
+    last = src.index("// Run by threads 0 .. CHUNK-1")
     out = src[:first] + COMPARE_TEST + src[last:]
     for old, new in EDITS:
         out = replace(out, old, new)
@@ -74,14 +75,16 @@ def compare_source(src):
 
 
 def build(variants):
-    """{name: sweep_masks_launch} of each source, nvcc run in parallel."""
+    """{name: sweep_masks_launch} of sweep.cu on each text of
+    column_tile.cuh, nvcc run in parallel."""
     procs = {}
     for name, text in variants.items():
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         for h in SRC.glob("*.cuh"):
             shutil.copy(h, d)
-        (d / "sweep.cu").write_text(text)
+        shutil.copy(SRC / "sweep.cu", d)
+        (d / "column_tile.cuh").write_text(text)
         procs[name] = subprocess.Popen(
             [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", str(d / "lib.so"),
@@ -133,7 +136,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    src = (SRC / "sweep.cu").read_text()
+    src = (SRC / "column_tile.cuh").read_text()
     launches = build({"sign": src, "compare": compare_source(src)})
     order = ["sign", "compare", "compare", "sign"] * 2
     dev = torch.device("cuda")

@@ -47,10 +47,14 @@ run-expansion fill). Prints one JSON line per reading:
 - ``launch``: the grid count kernel at 1M (grid_dim 24 and 25, through
   ``emit.count_launch``), the big count and the big emission kernel on
   the power-law and giants routes' parked plans (a raw launch, row
-  ranges, counts and first slots computed once) and the column masks
-  kernel on the dense exact plan (rpw 12) and the power-law route's
-  parked column plan (rpw 3), median of 15 samples of 20 calls in a
-  row: the launches queue, so the time is the kernel's device time.
+  ranges, counts and first slots computed once), the column masks
+  kernel on the dense exact plan (rpw 12), the 1M column plan (rpw 2)
+  and the power-law route's parked column plan (rpw 3), and the column
+  count kernels, rolled and aligned, at rpw 2 on the 1M plan, on
+  ``auto``'s 262144-sphere plan and on the power-law parked plan (the
+  rolled one is the dual count's launch there), median of 15 samples of
+  20 calls in a row: the launches queue, so the time is the kernel's
+  device time.
 
 Exits non-zero when there is no CUDA device or the divisor check fails.
 """
@@ -187,6 +191,22 @@ def column_masks_launcher(plan, rpw):
     return launch
 
 
+def column_count_launcher(plan, rpw, rolled):
+    """A raw launch of a column count kernel on a column plan, adding
+    into one total allocated once."""
+    import torch
+    from collision_tpu_torch.kernels import _build
+
+    total = torch.zeros((1,), dtype=torch.int64, device=plan.stream.device)
+
+    def launch():
+        _build.launch("sweep_count_launch", plan.stream.data_ptr(),
+                      plan.starts.data_ptr(), plan.w0.data_ptr(),
+                      plan.wcap.data_ptr(), plan.gxy ** 2, plan.mc, rpw,
+                      int(rolled), total.data_ptr())
+    return launch
+
+
 def union_ms(intervals):
     """Total length of the union of (start, end) intervals, µs -> ms."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -271,8 +291,8 @@ def main():
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    from chip_smoke import (DENSE_CAPACITY, DENSE_N, DENSE_R, DENSE_ROUTE,
-                            DIAG_D_MAX, F64_CAPACITY, GRID_ODD,
+    from chip_smoke import (AUTO_SCENES, DENSE_CAPACITY, DENSE_N, DENSE_R,
+                            DENSE_ROUTE, DIAG_D_MAX, F64_CAPACITY, GRID_ODD,
                             HETERO_CAPACITY, HETERO_ROUTES, giants_scene,
                             powerlaw_scene, uniform_scene)
     from collision_tpu_torch import Collider, collide, columns, fill, grid, slabs
@@ -368,6 +388,12 @@ def main():
         good &= profile_step(label, fn, STEPS, ev, out_dir, sweep_kernel,
                              *per_step)
     # After the profiles, so that these launches stay out of them.
+    _, _, a_coords, a_radii = uniform_scene(AUTO_SCENES[0][0], dev)
+    aplan = columns.plan_columns(a_coords, a_radii,
+                                 *columns.default_column_config(
+                                     AUTO_SCENES[0][0]))
+    pl_route = HETERO_ROUTES["hetero_powerlaw"][0]
+    pl_plan = parked_plan(pl_coords, pl_radii, pl_route)[1]
     launches = {
         "grid_count_gd24": lambda: grid_emit.count_launch(gbins, *gcfg,
                                                           False),
@@ -388,10 +414,12 @@ def main():
                                  DENSE_ROUTE["col_capacity"],
                                  DENSE_ROUTE["slab_rows"]),
             DENSE_ROUTE["rpw"]),
-        "column_masks_powerlaw": column_masks_launcher(
-            parked_plan(pl_coords, pl_radii,
-                        HETERO_ROUTES["hetero_powerlaw"][0])[1],
-            HETERO_ROUTES["hetero_powerlaw"][0][4])}
+        "column_masks_1m": column_masks_launcher(cplan, 2),
+        "column_masks_powerlaw": column_masks_launcher(pl_plan, pl_route[4])}
+    for name, p in (("1m", cplan), ("262144", aplan), ("powerlaw", pl_plan)):
+        for rolled, kind in ((True, "rolled"), (False, "aligned")):
+            launches[f"column_count_{kind}_{name}"] = column_count_launcher(
+                p, 2, rolled)
     for name, fn in launches.items():
         emit("launch", name=name, ms=queued(fn))
     return 0 if good else 1

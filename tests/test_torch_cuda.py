@@ -192,23 +192,44 @@ def test_column_kernels_match_plain(cuda, scene):
         occ = plan.starts[1:gxy * gxy + 1] - plan.starts[:gxy * gxy]
         ends = set((occ % 64).tolist())
         assert ends & set(range(1, 32)) and ends & set(range(33, 64))
-    for rpw in (1, int(plan.rows_needed)):
-        for rolled, name in ((True, "sweep_count_rolled"),
-                             (False, "sweep_count_aligned")):
-            before = _build.LAUNCHES[name]
-            assert int(sweep.sweep_count(plan, rpw, rolled)) \
-                == int(sweep.sweep_count_plain(plan, rpw, rolled))
-            assert _build.LAUNCHES[name] == before + 1
+    clamped = False
+    for rpw in sorted({1, int(plan.rows_needed), int(plan.rows_rolled)}):
+        # Rolled windows longer than rpw rows are clamped to rpw*128 lanes.
+        clamped |= bool((plan.wcap > rpw * 128).any())
+        _check_counts(plan, rpw)
         before = _build.LAUNCHES["sweep_masks"]
         assert torch.equal(sweep.sweep_masks(plan, rpw),
                            sweep.sweep_masks_plain(plan, rpw))
         assert _build.LAUNCHES["sweep_masks"] == before + 1
+    if n == 900:
+        assert clamped
+    # Windows that start at odd positions and inside a 64-lane segment
+    # (the count kernels walk a window in segments from floor(w/64)*64):
+    # the tables shifted by 1 and by 65 lanes, cut at the stream's end.
+    npos = plan.stream.shape[0] * 128
+    for shift in (1, 65):
+        w0 = plan.w0 + shift
+        shifted = plan._replace(w0=w0, wcap=torch.minimum(
+            plan.wcap, npos - w0).clamp(min=0))
+        assert bool((shifted.wcap > 0).any())
+        for rpw in (1, int(plan.rows_needed)):
+            _check_counts(shifted, rpw)
 
 
-def test_column_masks_signed_zeros_and_nans(cuda):
-    # The masks kernel tests by the sign of float differences: boxes whose
-    # x bounds are +0 or -0 (touching at 0, no pair) and bounds that are
-    # NaN of either sign (no pair) must give the plain version's words.
+def _check_counts(plan, rpw):
+    """Both column count kernels == sweep_count_plain, one launch each."""
+    for rolled, name in ((True, "sweep_count_rolled"),
+                         (False, "sweep_count_aligned")):
+        before = _build.LAUNCHES[name]
+        assert int(sweep.sweep_count(plan, rpw, rolled)) \
+            == int(sweep.sweep_count_plain(plan, rpw, rolled))
+        assert _build.LAUNCHES[name] == before + 1
+
+
+def _signed_zeros_and_nans(cuda):
+    """The mid-word-chunks scene's column plan, with the x bounds of half
+    its spheres +0 or -0 (touching at 0, no pair) and one bound of a tenth
+    of them NaN of either sign (no pair)."""
     coords, radii, gxy, cap = CULL_COLUMN_SCENES["mid_word_chunks"]()
     gxy, _, rows = columns.default_column_config(len(coords), gxy=gxy)
     plan = columns.plan_columns(torch.from_numpy(coords).to(cuda),
@@ -224,11 +245,46 @@ def test_column_masks_signed_zeros_and_nans(cuda):
     for p in rng.permutation(n)[: n // 10]:
         r, l = divmod(int(p), 128)
         stream[r, rng.randint(6), l] = float(rng.choice([np.nan, -np.nan]))
-    plan = plan._replace(stream=stream)
+    return plan._replace(stream=stream)
+
+
+def test_column_masks_signed_zeros_and_nans(cuda):
+    # The masks kernel tests by the sign of float differences: signed
+    # zeros and NaNs must give the plain version's words.
+    plan = _signed_zeros_and_nans(cuda)
     for rpw in (1, 2):
         got = sweep.sweep_masks(plan, rpw)
         want = sweep.sweep_masks_plain(plan, rpw)
         assert torch.equal(got, want) and int(want.ne(0).sum()) > 0
+
+
+def test_column_counts_signed_zeros_and_nans(cuda):
+    # The count kernels test by the same sign bits: the plain count,
+    # rolled and aligned.
+    plan = _signed_zeros_and_nans(cuda)
+    for rpw in (1, 2):
+        for rolled in (True, False):
+            want = int(sweep.sweep_count_plain(plan, rpw, rolled))
+            assert int(sweep.sweep_count(plan, rpw, rolled)) == want > 0
+
+
+@pytest.mark.parametrize("base", [1, 2])
+def test_sweep_count_dual_on_card_matches_cpu(cuda, base):
+    # The hetero engine's column S-S count on a power-law scene's parked
+    # plan: the rolled kernel at ``base`` rows on windows clamped to
+    # base*128 lanes (some longer: the residual jobs take the rest).
+    coords, radii = _power_law(6000)
+    parked = hetero._split(coords, radii, 128)[2]
+    config = columns.default_column_config(6000, gxy=3)
+    plan = columns.plan_columns(coords, parked, *config)
+    assert int((plan.wcap > base * 128).sum()) > 0
+    want, want_ok = sweep.sweep_count_dual(plan, base=base)
+    before = _build.LAUNCHES["sweep_count_rolled"]
+    got, got_ok = sweep.sweep_count_dual(
+        columns.plan_columns(coords.to(cuda), parked.to(cuda), *config),
+        base=base)
+    assert _build.LAUNCHES["sweep_count_rolled"] == before + 1
+    assert int(got) == int(want) > 0 and bool(got_ok) == bool(want_ok)
 
 
 @pytest.mark.parametrize("scene", COLUMN_SCENES)

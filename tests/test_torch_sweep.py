@@ -46,8 +46,11 @@ def _plans(name):
     return coords, radii, jp, columns.plan_from_numpy(d, "cpu")
 
 
+# The counts also on the card kernels' cull edges, at rows that hold
+# every window (the masks test's scenes).
 @pytest.mark.parametrize("rolled", [True, False])
-@pytest.mark.parametrize("scene,rpw", CASES)
+@pytest.mark.parametrize("scene,rpw", CASES + [
+    ("touching_lattice", 2), ("full_column_beside_empty", 3)])
 def test_sweep_count_plain_matches_pallas(scene, rpw, rolled):
     coords, radii, jp, tp = _plans(scene)
     # unroll=1: the TPU's chunk unrolling changes no count of an ok plan
