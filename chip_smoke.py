@@ -60,15 +60,18 @@ on the reference's dense scene:
    k-d tree oracle, and ``Collider(1000, coord_dtype="float64")`` on 1000
    spheres at one point, whose first step overflows the default candidate
    bound and whose retry must return all 499,500 pairs;
-11. the grid count, column masks and big pass kernels at the edges of
-   their cull (``cull_edges``, collision_tpu_torch/testing/scenes.py):
-   boxes that touch across cell and column faces and one ulp across,
-   radii of half a cell, a 305-row cell beside an empty one, a full
-   column beside an empty one, chunks that end inside a mask word, the
-   dense oracle scene's grid (grid_dim 8, cell_capacity 192), and bigs
-   on the faces of the rows' union boxes beside rows of pad and of
+11. the grid count, column masks, slab count and masks and big pass
+   kernels at the edges of their cull (``cull_edges``,
+   collision_tpu_torch/testing/scenes.py): boxes that touch across cell,
+   column and slab faces and one ulp across, radii of half a cell, a
+   305-row cell beside an empty one, a full column or slab beside an
+   empty one, chunks that end inside a mask word, windows from odd
+   positions and from a stream row's last lane, windows past 128 lanes,
+   the dense oracle scene's grid (grid_dim 8, cell_capacity 192), and
+   bigs on the faces of the rows' union boxes beside rows of pad and of
    parked lanes, each against its plain version (tile counts, totals,
-   masks, row counts, pair buffers).
+   masks, row counts, pair buffers; the slab count at first offsets 0
+   and 1 and dmin 0 and 48, the slab masks at one and two rows).
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after; the slab
@@ -94,9 +97,9 @@ records print the live tests beside
 (``dense_tests``: occ(a) * occ(b), 64 x 128 a visited big chunk). The
 sweep kernels' tests, the column and the slab counts' and masks', are
 each window lane's against the 32-row mask words whose union box it
-meets (beside them, ``dense_tests``, every live a-row against the
-window; the slab kernels run all of those), and these records give
-both times of the bound; the diagonal count's phase adds the bound of
+meets, as the kernels cull them (beside them, ``dense_tests``, every
+live a-row against the window), and these records give both times of
+the bound; the diagonal count's phase adds the bound of
 its cross-only slab count. The column count kernels are checked and
 timed on the 1M column plan (their records), on ``auto``'s 262144 plan
 and on the power-law parked plan (``column_plan_work`` lines, beside
@@ -920,22 +923,50 @@ def big_kernels_agree(bigs, stream, label):
     return err if same else max(err, 1), total
 
 
+def slab_kernels_agree(plan, label):
+    """The slab count kernel at first offsets 0 and 1 and dmin 0 and 48,
+    and the slab masks kernel, at one and two rolled rows, against their
+    plain versions on one slab plan. Returns (max_abs_err, nonzero mask
+    words)."""
+    from collision_tpu_torch.kernels import slab_sweep
+
+    args = (plan.stream, plan.starts, plan.w0, plan.wcap)
+    err = words = 0
+    for rpw in (1, 2):
+        for first_off in (0, 1):
+            for dmin in (0, DIAG_D_MAX):
+                kw = {"rpw": rpw, "first_off": first_off, "dmin": dmin}
+                err = max(err, abs(
+                    int(slab_sweep.slab_window_count(*args, **kw))
+                    - int(slab_sweep.slab_window_count_plain(*args, **kw))))
+        got = slab_sweep.slab_masks(*args, rpw=rpw)
+        err = max(err, max_abs_err(
+            got, slab_sweep.slab_masks_plain(*args, rpw=rpw)))
+        words += int(got.ne(0).sum())
+    check(err == 0, f"{label}: slab count and masks kernels == plain "
+          f"(max_abs_err {err})")
+    return err, words
+
+
 def cull_edges(dev):
-    """The grid count, column masks and big pass kernels against their
-    plain versions at the edges of their cull
-    (collision_tpu_torch/testing/scenes.py: boxes touching across cell or
-    column faces and one ulp across, radii of half a cell, a 305-row cell
-    beside an empty one, a full column beside an empty one, chunks that
-    end inside a mask word; bigs on the faces of the rows' union boxes, a
-    row of pad lanes, a row of parked lanes) and on the dense oracle
-    scene's grid (65536 spheres, radii U(0, 0.06), grid_dim 8,
-    cell_capacity 192: two 128-row chunks, a cull that keeps most
+    """The grid count, column masks, slab count and masks and big pass
+    kernels against their plain versions at the edges of their cull
+    (collision_tpu_torch/testing/scenes.py: boxes touching across cell,
+    column or slab faces and one ulp across, radii of half a cell, a
+    305-row cell beside an empty one, a full column or slab beside an
+    empty one, chunks that end inside a mask word, windows from odd
+    positions and from a stream row's last lane, and the slab scenes'
+    tables shifted by 1 and 65 lanes; bigs on the faces of the rows'
+    union boxes, a row of pad lanes, a row of parked lanes) and on the
+    dense oracle scene's grid (65536 spheres, radii U(0, 0.06), grid_dim
+    8, cell_capacity 192: two 128-row chunks, a cull that keeps most
     rows)."""
     import torch
-    from collision_tpu_torch import columns, grid
+    from collision_tpu_torch import columns, grid, slabs
     from collision_tpu_torch.kernels import sweep
     from collision_tpu_torch.testing.scenes import (COLUMN_SCENES,
-                                                    GRID_SCENES,
+                                                    GRID_SCENES, SLAB_EDGES,
+                                                    SLAB_SCENES, slab_edges,
                                                     touching_big_pass)
 
     t0 = time.perf_counter()
@@ -967,6 +998,24 @@ def cull_edges(dev):
                   f"{rpw} (max_abs_err {err})")
             words = int(got.ne(0).sum())
         totals[name + "_mask_words"] = words
+    for name, scene in SLAB_SCENES.items():
+        coords, radii, gx, cap = scene()
+        gx, default_cap, rows = slabs.default_slab_config(len(coords), gx=gx)
+        plan = slabs.plan_slabs(torch.from_numpy(coords).to(dev),
+                                torch.from_numpy(radii).to(dev), gx,
+                                cap or default_cap, rows)
+        edges = slab_edges(*(t.cpu().numpy() for t in (
+            plan.stream, plan.starts, plan.w0, plan.wcap)), gx)
+        check(bool(plan.ok) and SLAB_EDGES[name] <= edges,
+              f"{name}: slab plan ok, reaches {sorted(SLAB_EDGES[name])}")
+        totals["slab_" + name + "_mask_words"] = slab_kernels_agree(
+            plan, f"slab {name}")[1]
+        npos = plan.stream.shape[0] * 128
+        for shift in (1, 65):
+            w0 = plan.w0 + shift
+            slab_kernels_agree(plan._replace(w0=w0, wcap=torch.minimum(
+                plan.wcap, npos - w0).clamp(min=0)),
+                f"slab {name} shifted {shift}")
     *table, stream = touching_big_pass()
     bigs = tuple(torch.from_numpy(a).to(dev) for a in table)
     totals["touching_big_pass"] = big_kernels_agree(
@@ -1165,7 +1214,7 @@ def diag_path(dev, record, launches, coords, radii, expected):
            lambda: slab_sweep.diag_count_plain(*dargs),
            moved, tests, plain_batch=2)
     # The cross-only slab count that slab_count_diag launches (offset x+1,
-    # j > i + d_max): the tests an exact per-word cull would leave.
+    # j > i + d_max): the tests its per-word cull leaves.
     cross, cross_window = mask_tests(plan, 1, True, noff=2, first_off=1,
                                      dmin=DIAG_D_MAX)
     cross_bound = bounds(sweep_bytes(plan) + 8, cross)
@@ -1338,9 +1387,9 @@ def main():
             "library_ms": None if library_fn is None
             else time_ms(library_fn, batch=KERNEL_BATCH), **extra})
 
-    # Rows 1-2's bounds: the tests an exact per-word union-box cull would
-    # leave on the slab plan (the kernels run every window test: beside
-    # them as dense_tests).
+    # Rows 1-2's bounds: the tests the kernels' per-word union-box cull
+    # leaves on the slab plan (every window test beside them as
+    # dense_tests).
     sweep_in = sweep_bytes(plan)
     slab_tests, slab_window = mask_tests(plan, 1, True, noff=2)
     cnt = slab_sweep.slab_window_count(*args)

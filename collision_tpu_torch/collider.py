@@ -64,8 +64,13 @@ HETERO_GAIN_MIN = 2.0
 #: never changes a result, and it narrows the windows.
 RPW_RETRY_MAX = 48
 
+#: The BVH traversal's default stack depth (the reference's 64): the
+#: JAX package's ``lbvh.traverse.STACK_DEPTH``, copied.
+STACK_DEPTH = 64
+
 _PORTED = ("auto", "slab", "column", "hetero", "grid")
 _UNPORTED = ("bvh",)
+_KERNEL_MODES = (None, "native", "interpret")
 
 
 class CollisionResult(NamedTuple):
@@ -126,9 +131,10 @@ def default_cand_capacity(n, capacity):
     return max(1 << 17, 8 * capacity, 32 * n)
 
 
-def collide(coords, radii, capacity, method="auto", gxy=None,
-            col_capacity=None, slab_rows=None, rpw=DEFAULT_RPW, gx=None,
-            nb=None, grid_dim=None, cell_capacity=None, cand_capacity=None):
+def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
+            grid_dim=None, cell_capacity=None, gxy=None, col_capacity=None,
+            slab_rows=None, rpw=DEFAULT_RPW, cand_capacity=None, gx=None,
+            nb=None, kernel_mode=None):
     """One broad-phase step on the device of ``coords``.
 
     Float32 steps run the engines' kernels. Float64 steps, and
@@ -144,6 +150,8 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
       capacity: pair-buffer capacity; 0 = count-only. Fills above
         ``fill.BIG_FILL_THRESHOLD`` emit through the pair-emission
         kernel.
+      stack_depth: the BVH traversal's stack depth; it has a use only
+        with ``method="bvh"``, which is not ported yet.
       method: "slab" (x-sorted two-offset slab sweep, slabs.py),
         "column" (z-sorted column sweep + mask fill, columns.py),
         "hetero" (the ``nb`` largest spheres parked out of the small
@@ -171,6 +179,13 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
         per cell); a None resolves from ``default_grid_config(n)``.
       cand_capacity: candidate bound of the run-expansion fill; None is
         :func:`default_cand_capacity`.
+      kernel_mode: None, "native" or "interpret", accepted for the JAX
+        package's signature and changing nothing: the tensors' device
+        picks the kernels (CUDA) or their plain versions (CPU), so the
+        port has no interpret mode and no ``interpret_kernels``.
+
+    The parameters are the JAX package's, in its order and with its
+    defaults.
 
     Returns:
       :class:`CollisionResult`.
@@ -181,6 +196,8 @@ def collide(coords, radii, capacity, method="auto", gxy=None,
             f"port); {', '.join(map(repr, _PORTED))} are")
     if method not in _PORTED:
         raise ValueError(f"Unknown method: {method}")
+    if kernel_mode not in _KERNEL_MODES:
+        raise ValueError(f"kernel_mode {kernel_mode!r} not in {_KERNEL_MODES}")
     if (coords.dtype not in (torch.float32, torch.float64)
             or radii.dtype != coords.dtype):
         raise ValueError(

@@ -47,12 +47,12 @@
 
 #include "block_scan.cuh"
 #include "cull.cuh"
-#include "tile_test.cuh"
+#include "stream.cuh"
 
 namespace {
 
-using tile::CHUNK;
-using tile::LANE;
+using stream::CHUNK;
+using stream::LANE;
 
 constexpr int WARPS = LANE / 32;
 
@@ -81,7 +81,7 @@ big_count_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
   __shared__ cull::Box wu[WARPS];      // each warp's part of the row union
   __shared__ int wlive[WARPS];
   __shared__ int wkeep[WARPS];
-  const tile::Box b = tile::load_box(s, row * LANE + threadIdx.x);
+  const stream::Box b = stream::load_box(s, row * LANE + threadIdx.x);
   cull::Box u = cull::empty();
   cull::add(u, b);
   u = cull::warp_union(u);
@@ -116,7 +116,7 @@ big_count_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
           visit_chunk(v / CHUNK, n_always, lo)) * CHUNK + v % CHUNK;
       const float4 p = rows[2 * r], q = rows[2 * r + 1];
       // xlo ylo zlo xhi | yhi zhi id pad
-      tile::Box a;
+      stream::Box a;
       a.lo[0] = p.x; a.lo[1] = p.y; a.lo[2] = p.z;
       a.hi[0] = p.w; a.hi[1] = q.x; a.hi[2] = q.y;
       in = cull::meets(a, u);
@@ -181,7 +181,7 @@ big_emit_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
   __shared__ unsigned skeep[2][WARPS];
   __shared__ cull::Box wu[WARPS + 1];  // the warps' unions, the row's
   const int p = row * LANE + threadIdx.x;
-  const tile::Box b = tile::load_box(s, p);
+  const stream::Box b = stream::load_box(s, p);
   {
     cull::Box u = cull::empty();
     cull::add(u, b);
@@ -208,7 +208,7 @@ big_emit_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
           visit_chunk(v / CHUNK, n_always, lo)) * CHUNK + v % CHUNK;
       const float4 pl = rows[2 * r], ql = rows[2 * r + 1];
       // xlo ylo zlo xhi | yhi zhi id pad
-      tile::Box a;
+      stream::Box a;
       a.lo[0] = pl.x; a.lo[1] = pl.y; a.lo[2] = pl.z;
       a.hi[0] = pl.w; a.hi[1] = ql.x; a.hi[2] = ql.y;
       in = cull::meets(a, u);
@@ -237,7 +237,7 @@ big_emit_kernel(const float* __restrict__ bigs, const int* __restrict__ c0,
       long long slot = cur + scan::block_exclusive_scan(__popc(bits), &n);
       for (; bits && slot < capacity; bits &= bits - 1, ++slot) {
         ida[slot] = __float_as_int(word[2 * (__ffs(bits) - 1)].w);
-        idb[slot] = __float_as_int(tile::stream_comp(s, p, 6));
+        idb[slot] = __float_as_int(stream::comp(s, p, 6));
       }
       cur += n;
     }

@@ -7,20 +7,34 @@
 // hetero engine's slab pass; and _make_diag_kernel (reached through
 // diag_count and slab_count_diag).
 //
-// What bounds it on the H100: the strict six-compare box test. At 1M
-// uniform spheres the plan holds ~15.6k live chunks, each tested against
-// two windows of up to 128 lanes: at most ~256M box tests, while
-// the bytes read are the 32 MB stream once plus window re-reads that stay
-// in the 50 MB L2. So it is bound by instruction issue, not by HBM.
+// What bounds them on the H100. At 1M uniform spheres the plan holds
+// ~15.6k live chunks, each against two rolled windows of up to 128
+// lanes: 166,196,256 box tests in the windows, of which an exact cull
+// of each 32-row mask word leaves 45,111,184 (0.004 ms of float adds).
+// Their bytes are the stream's six box channels and the tables, read
+// once (0.0073 ms at 3.35 TB/s), with window re-reads that stay in the
+// 50 MB L2, and for the masks the words written (0.0177 ms in all).
+// Neither holds them, as with the column kernels (sweep.cu): each block
+// is a chain of latencies, staging, lane loads, unions, ballots.
 //
-// What this simple design does about it: one 128-thread block per
-// (slab, chunk); the chunk's 64 a-side boxes sit in shared memory, where
-// every thread reads the same word at once (a broadcast, no bank
-// conflicts); each thread holds one window lane's box in registers and
-// walks the a-rows. The TPU kernel's DMA ring, quad chunk pairing, lane
-// rolls and [aw*64, 6] transpose have no use here and are gone. Lanes
-// past the window are not read at all. The count reduces each block in
-// registers and adds one integer atomic, so the total is deterministic.
+// What the design does about it: the column kernels' tile test
+// (column_tile.cuh). One 128-thread block per (chunk, slab) stages the
+// chunk's 64 a-rows and the union box of each 32-row half in shared
+// memory; a warp takes 64 window lanes, two a thread; a half is tested
+// only if a lane meets its union, and then only its a-rows that meet
+// the lanes' union, each test six float differences' sign bits. The
+// count is the column count's block (count_block) on the slab's two
+// offsets, self slab (j > i) and slab x+1, from offset first_off on;
+// with DMIN (slab_count_diag's cross-only pass) j > i + dmin on every
+// offset, one shift of the self mask. The masks write each window row's
+// words at rolled lanes: a warp takes 64 words of a row, word l at
+// sorted position w + r*128 + l, each lane loaded on its own (a lane
+// pair may span two stream rows), and a thread stores its two words of
+// each half with one 8-byte store. On an H100 8-byte loads where w is
+// even were no faster, and the count's walk of stream-aligned segments,
+// storing each word on its own, 13-17% slower (masks_variants.py). The
+// TPU kernel's DMA ring, quad chunk pairing, lane rolls and [aw*64, 6]
+// transpose have no use here and are gone.
 //
 // The diagonal count tests every sorted position i against i+1 .. i+d_max,
 // and runs the missed-pair detector at i+d_max+1. At 1M spheres and the
@@ -35,38 +49,101 @@
 // gone; its skipped last block is kept as the domain's end. Totals reduce
 // per block and add one integer atomic each, so both are deterministic.
 //
-// Built without --use_fast_math: the test is a compare of floats that the
-// plan computed, and must match the CPU bit for bit.
+// Built without --use_fast_math: the tests compare floats that the plan
+// computed, or take their exact differences, which flushing subnormals
+// to zero would break, and must match the CPU bit for bit.
 
-#include "tile_test.cuh"
+#include "column_tile.cuh"
 
 namespace {
 
-using tile::LANE;
+using column::LPT;
+using column::SEG;
+using stream::CHUNK;
+using stream::LANE;
 
-// The slab engine's two offsets (self slab with j > i, slab x+1) at rpw
-// rolled rows per window, from offset first_off on, with j > i + dmin on
-// every offset when DMIN. RPW > 0 fixes the row count at compile time (the
-// uniform engine's one row, whose loop then folds away); RPW = 0 reads it
-// from rpw.
-template <int RPW, bool DMIN>
+constexpr int NOFF = 2;   // self slab, slab x+1
+
+// Count block (k, x): chunk k of slab x, rolled rows (column::count_block).
+template <bool DMIN>
 __global__ void __launch_bounds__(LANE)
 slab_count_kernel(const float* __restrict__ s, const int* __restrict__ starts,
                   const int* __restrict__ w0, const int* __restrict__ wcap,
                   int mc, int rpw, int first_off, int dmin,
                   unsigned long long* __restrict__ total) {
-  tile::count_chunk<2, true, DMIN>(s, starts, w0, wcap, mc, RPW ? RPW : rpw,
-                                   first_off, dmin, blockIdx.y, blockIdx.x,
-                                   total);
+  column::count_block<NOFF, true, DMIN>(s, starts, w0, wcap, mc, rpw,
+                                        first_off, dmin, blockIdx.y,
+                                        blockIdx.x, total);
 }
 
-template <int RPW>
+// Masks block (kq, x): chunk slot kq of slab x (kq in [0, ng*kg)) writes
+// its NOFF*rpw*2 rows of 128 words, row (off*rpw + r)*2 + h of chunk kk =
+// kq % kg in block x*ng + kq / kg, word l = rolled window lane r*128 + l,
+// bit t = a-row h*32 + t. Every word is written: slots past mc and dead
+// chunks write zeros, 16 bytes a store, and a segment of words past the
+// window writes zeros and loads nothing. The warps take the (offset,
+// row, segment) units.
 __global__ void __launch_bounds__(LANE)
 slab_masks_kernel(const float* __restrict__ s, const int* __restrict__ starts,
                   const int* __restrict__ w0, const int* __restrict__ wcap,
                   int mc, int rpw, int kg, int ng, uint32_t* __restrict__ out) {
-  tile::masks_chunk<2, true>(s, starts, w0, wcap, mc, RPW ? RPW : rpw, kg, ng,
-                             blockIdx.y, blockIdx.x, out);
+  const int b = blockIdx.y, kq = blockIdx.x;
+  const int nrows = NOFF * rpw * 2;
+  uint32_t* rows = out + ((static_cast<long long>(b) * ng + kq / kg) * kg
+                          + kq % kg) * nrows * LANE;
+  const int a1 = starts[b + 1];
+  const int g0 = starts[b] + kq * CHUNK;
+  const int alen = kq < mc ? max(0, min(a1 - g0, CHUNK)) : 0;
+  if (alen == 0) {
+    uint4* o = reinterpret_cast<uint4*>(rows);
+    for (int i = threadIdx.x; i < nrows * LANE / 4; i += LANE)
+      o[i] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+
+  __shared__ float4 slo[CHUNK], shi[CHUNK];
+  __shared__ cull::Box half_union[2];
+  __shared__ int win[NOFF][2];   // the offsets' window starts and lengths
+  if (threadIdx.x < CHUNK) {     // warps 0 and 1: the two halves
+    column::stage_chunk(s, g0, alen, slo, shi, half_union);
+  } else if (threadIdx.x < CHUNK + NOFF) {
+    const long long e = (static_cast<long long>(b) * mc + kq) * NOFF
+                        + threadIdx.x - CHUNK;
+    win[threadIdx.x - CHUNK][0] = w0[e];
+    win[threadIdx.x - CHUNK][1] = wcap[e];
+  }
+  __syncthreads();
+
+  constexpr int ROW_SEGS = LANE / SEG;   // warp units a window row
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  for (int unit = warp; unit < NOFF * rpw * ROW_SEGS; unit += LANE / 32) {
+    const int item = unit / ROW_SEGS, off = item / rpw, r = item % rpw;
+    const int w = win[off][0], wc = win[off][1];
+    const int seg0 = r * LANE + (unit % ROW_SEGS) * SEG;   // rolled lane
+    const int l0 = seg0 % LANE + lt * LPT;                 // first word
+    uint2* row = reinterpret_cast<uint2*>(rows + (off * rpw + r) * 2 * LANE
+                                          + l0);
+    if (seg0 >= wc) {   // the warp's segment, uniform: past the window
+      row[0] = make_uint2(0u, 0u);
+      row[LANE / LPT] = make_uint2(0u, 0u);
+      continue;
+    }
+    const int j0 = w + seg0 + lt * LPT;
+    cull::Box wu;
+    const column::Lanes t = column::load_rolled_lanes(s, j0, w, w + wc, &wu);
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      const float4* al = slo + h * 32;
+      const float4* ah = shi + h * 32;
+      const cull::Box hu = half_union[h];   // a register copy, as sweep.cu
+      uint32_t word[LPT], keep[LPT];
+      column::test_rows(al, ah,
+                        column::survivors(al, ah, hu, wu, t, off == 0,
+                                          j0 - g0 - 32 * h, keep),
+                        t, word);
+      row[h * LANE / LPT] = make_uint2(word[0] & keep[0], word[1] & keep[1]);
+    }
+  }
 }
 
 constexpr int DIAG_THREADS = 256;
@@ -83,14 +160,14 @@ diag_count_kernel(const float* __restrict__ s, const float* __restrict__ thr,
   const int t = threadIdx.x;
   const long long p0 = static_cast<long long>(blockIdx.x) * DIAG_THREADS;
   for (int idx = t; idx < 6 * w; idx += DIAG_THREADS)
-    sb[idx] = tile::stream_comp(s, p0 + 1 + idx % w, idx / w);
+    sb[idx] = stream::comp(s, p0 + 1 + idx % w, idx / w);
 
   const long long p = p0 + t;
   float lo[3], hi[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    lo[c] = tile::stream_comp(s, p, c);
-    hi[c] = tile::stream_comp(s, p, c + 3);
+    lo[c] = stream::comp(s, p, c);
+    hi[c] = stream::comp(s, p, c + 3);
   }
   __syncthreads();
 
@@ -104,8 +181,8 @@ diag_count_kernel(const float* __restrict__ s, const float* __restrict__ thr,
   // in every channel, so "inf < inf + thr" never flags them.
   const long long q = p + d_max + 1;
   const float zhi_thr = hi[2] + thr[0];
-  int flag = (tile::stream_comp(s, q, 7) == tile::stream_comp(s, p, 7)) &
-             (tile::stream_comp(s, q, 2) < zhi_thr);
+  int flag = (stream::comp(s, q, 7) == stream::comp(s, p, 7)) &
+             (stream::comp(s, q, 2) < zhi_thr);
 
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -136,13 +213,13 @@ extern "C" int slab_count_launch(const float* s, const int* starts,
                                  const int* w0, const int* wcap, int gx,
                                  int mc, int rpw, int first_off, int dmin,
                                  unsigned long long* total, void* stream) {
+  if (first_off < 0 || first_off >= NOFF || dmin < 0 ||
+      (reinterpret_cast<uintptr_t>(s) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (gx > 0 && mc > 0 && rpw > 0) {
     const dim3 grid(mc, gx);
     auto st = static_cast<cudaStream_t>(stream);
-    auto kernel = rpw == 1 ? (dmin > 0 ? slab_count_kernel<1, true>
-                                       : slab_count_kernel<1, false>)
-                           : (dmin > 0 ? slab_count_kernel<0, true>
-                                       : slab_count_kernel<0, false>);
+    auto kernel = dmin > 0 ? slab_count_kernel<true> : slab_count_kernel<false>;
     kernel<<<grid, LANE, 0, st>>>(s, starts, w0, wcap, mc, rpw, first_off,
                                   dmin, total);
   }
@@ -153,16 +230,13 @@ extern "C" int slab_masks_launch(const float* s, const int* starts,
                                  const int* w0, const int* wcap, int gx,
                                  int mc, int rpw, int kg, int ng, uint32_t* out,
                                  void* stream) {
-  if (gx > 0 && mc > 0 && rpw > 0) {
-    const dim3 grid(ng * kg, gx);
-    auto st = static_cast<cudaStream_t>(stream);
-    if (rpw == 1)
-      slab_masks_kernel<1><<<grid, LANE, 0, st>>>(s, starts, w0, wcap, mc, rpw,
-                                                  kg, ng, out);
-    else
-      slab_masks_kernel<0><<<grid, LANE, 0, st>>>(s, starts, w0, wcap, mc, rpw,
-                                                  kg, ng, out);
-  }
+  // The vector loads and stores need 16-byte aligned stream and masks.
+  if ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (gx > 0 && mc > 0 && rpw > 0)
+    slab_masks_kernel<<<dim3(ng * kg, gx), LANE, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        s, starts, w0, wcap, mc, rpw, kg, ng, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,13 +15,11 @@
 // 36,834,276 of 493,952,126 on the power-law plan, 517,483,206 of
 // 1,179,480,689 on the reference's dense plan (rpw 12).
 //
-// The count stores nothing but its total. A window's lanes are one index
-// range, [w, w + min(wc, rpw*128)) for rolled rows and [w, min(w + wc,
-// (w/128 + rpw)*128)) for aligned ones, walked in 64-lane segments from
-// floor(w/64)*64, so that each segment lies in one stream row; lanes of a
-// segment outside the range stay out of the union and the count. The
-// block's warps take the (offset, segment) units of its five windows in
-// turn. A thread sums the popcounts of its words in an int (a block
+// The count stores nothing but its total (column_tile.cuh's count_block,
+// which the slab count shares): a window's lanes are one index range,
+// walked in 64-lane segments that each lie in one stream row, the
+// block's warps taking the (offset, segment) units of its five windows
+// in turn. A thread sums the popcounts of its words in an int (a block
 // counts at most 64 x 5 x rpw*128: an int holds it up to rpw 128, the top
 // of the ladder); the block adds one integer atomic, so the total is
 // deterministic. Its bytes are the stream and the tables, read once, with
@@ -39,9 +37,9 @@
 // The masks: on the reference's dense plan the masks are 0.87 GB, two
 // thirds of it the zeros of dead chunk slots, and the kernel is still
 // bound by its tests, not its stores. Block x = column * (ng * kg) +
-// chunk slot kq writes the slot's NOFF*rpw*2 rows of 128 words
-// (tile::masks_chunk's layout: row (off*rpw + r)*2 + h, word l = window
-// lane l of row r, bit t = a-row h*32 + t). Every word is written: slots
+// chunk slot kq writes the slot's NOFF*rpw*2 rows of 128 words (the JAX
+// masks' layout: row (off*rpw + r)*2 + h, word l = stream lane l of
+// window row r, bit t = a-row h*32 + t). Every word is written: slots
 // past mc and dead chunks write zeros, 16 bytes a store. Its warps take
 // the (offset, row, segment) units; a thread writes its two lanes' words
 // of each half with one 8-byte store, and a segment outside the window
@@ -67,8 +65,8 @@ namespace {
 
 using column::LPT;
 using column::SEG;
-using tile::CHUNK;
-using tile::LANE;
+using stream::CHUNK;
+using stream::LANE;
 
 constexpr int NOFF = 5;   // columns.COLUMN_OFFSETS
 
@@ -79,55 +77,9 @@ __global__ void __launch_bounds__(LANE)
 column_count_kernel(const float* __restrict__ s, const int* __restrict__ starts,
                     const int* __restrict__ w0, const int* __restrict__ wcap,
                     int mc, int rpw, unsigned long long* __restrict__ total) {
-  const int b = blockIdx.x / mc, k = blockIdx.x % mc;
-  const int a1 = starts[b + 1];
-  const int g0 = starts[b] + k * CHUNK;
-  if (g0 >= a1) return;
-  const int alen = min(a1 - g0, CHUNK);
-
-  __shared__ float4 slo[CHUNK], shi[CHUNK];
-  __shared__ cull::Box half_union[2];
-  __shared__ int win[NOFF][3];   // each window's range [js, je), segments
-  if (threadIdx.x < CHUNK) {
-    column::stage_chunk(s, g0, alen, slo, shi, half_union);
-  } else if (threadIdx.x < CHUNK + NOFF) {
-    const int off = threadIdx.x - CHUNK;
-    const long long e = (static_cast<long long>(b) * mc + k) * NOFF + off;
-    const int w = w0[e], wc = wcap[e];
-    const int je = ROLLED ? w + min(wc, rpw * LANE)
-                          : min(w + wc, (w / LANE + rpw) * LANE);
-    win[off][0] = w;
-    win[off][1] = je;
-    win[off][2] = je > w ? (je + SEG - 1) / SEG - w / SEG : 0;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
-  int units = 0;
-#pragma unroll
-  for (int off = 0; off < NOFF; ++off) units += win[off][2];
-  int hits = 0;
-  for (int unit = warp; unit < units; unit += LANE / 32) {
-    int off = 0, seg = unit;
-    while (seg >= win[off][2]) seg -= win[off][2], ++off;
-    const int js = win[off][0], je = win[off][1];
-    const int j0 = (js / SEG + seg) * SEG + lt * LPT;
-    cull::Box wu;
-    const column::Lanes t = column::load_lanes(s, j0, js, je, &wu);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {   // both halves at once: more to issue
-      const float4* al = slo + h * 32;
-      const float4* ah = shi + h * 32;
-      uint32_t word[LPT], keep[LPT];
-      column::test_rows(al, ah,
-                        column::survivors(al, ah, half_union[h], wu, t,
-                                          off == 0, j0 - g0 - 32 * h, keep),
-                        t, word);
-#pragma unroll
-      for (int i = 0; i < LPT; ++i) hits += __popc(word[i] & keep[i]);
-    }
-  }
-  tile::block_add(hits, total);
+  column::count_block<NOFF, ROLLED, false>(s, starts, w0, wcap, mc, rpw, 0, 0,
+                                           blockIdx.x / mc, blockIdx.x % mc,
+                                           total);
 }
 
 __global__ void __launch_bounds__(LANE)

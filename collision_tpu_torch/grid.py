@@ -53,7 +53,12 @@ def id_bits(lane):
     return lane.contiguous().view(_INT_OF[lane.dtype]).long() & 0xFFFFFFFF
 
 
-def build_grid(coords, radii, grid_dim, cell_capacity):
+#: ``build_grid``'s methods: the JAX package's binning paths. The port
+#: has one, a sort and one row scatter, and takes every name for it.
+BUILD_METHODS = ("auto", "scatter", "compact")
+
+
+def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
     """Bin spheres into a dense padded grid.
 
     Returns (bins, ok, ids_sorted): ``bins`` is [grid_dim+2, grid_dim+2,
@@ -63,7 +68,13 @@ def build_grid(coords, radii, grid_dim, cell_capacity):
     False when a cell holds more than ``cell_capacity`` spheres (those
     past it are dropped). ``ids_sorted`` (int64) are the sphere ids in
     cell order, stable within a cell.
+
+    ``method`` ("auto", "scatter" or "compact") picks a binning path in
+    the JAX package; every one gives the same bins there and here, where
+    one path serves them all.
     """
+    if method not in BUILD_METHODS:
+        raise ValueError(f"method {method!r} not in {BUILD_METHODS}")
     dev = coords.device
     dt = coords.dtype
     n = coords.shape[0]

@@ -19,8 +19,11 @@ dual dispatch, and the port keeps its routing.
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/slab_sweep.cu``; on a CPU tensor it runs the plain PyTorch
-version beside it. Counts are exact int64, where the JAX kernels return
-int32 with a float32 twin as their wrap guard.
+version beside it. The window kernels run only the tests that an exact
+union-box cull of each 32-row mask word leaves (``csrc/column_tile.cuh``,
+shared with the column kernels); counts and words are the plain
+versions'. Counts are exact int64, where the JAX kernels return int32
+with a float32 twin as their wrap guard.
 """
 
 import torch

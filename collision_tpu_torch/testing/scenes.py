@@ -197,3 +197,124 @@ def touching_big_pass():
     zlo = np.where(live, rows[..., 2], _F32_INF).min(1)
     zhi = np.where(live, rows[..., 5], -_F32_INF).max(1)
     return rows, zlo.astype(np.float32), zhi.astype(np.float32), stream
+
+
+def _slab_scene(grid_scene, gx=None):
+    def scene():
+        coords, radii, grid_dim, _ = grid_scene()
+        return coords, radii, gx or grid_dim, None
+    scene.__doc__ = grid_scene.__doc__ + (
+        f" As a slab scene: gx {gx}." if gx else "")
+    return scene
+
+
+def slab_beside_empty(seed=17):
+    """300 spheres packed in slab 1 of a gx 4 plan (z in [0.3, 0.45]:
+    windows of up to ~300 lanes, past two 128-lane rows), 200 scattered in
+    slab 0 and 150 in slab 3; slab 2 stays empty, so slab 1's windows
+    into it are empty. Returns (coords, radii, gx, col_capacity)."""
+    rng = np.random.RandomState(seed)
+
+    def part(k, x0, x1, z0, z1):
+        c = rng.random((k, 3))
+        c[:, 0] = x0 + (x1 - x0) * c[:, 0]
+        c[:, 2] = z0 + (z1 - z0) * c[:, 2]
+        return c
+
+    coords = np.concatenate([part(200, 0.01, 0.24, 0, 1),
+                             part(300, 0.26, 0.49, 0.3, 0.45),
+                             part(150, 0.76, 0.99, 0, 1),
+                             [[0, 0, 0], [1, 1, 1]]]).astype(np.float32)
+    radii = np.concatenate([rng.uniform(0, 0.05, 200),
+                            rng.uniform(0, 0.02, 300),
+                            rng.uniform(0, 0.05, 152)]).astype(np.float32)
+    return coords, radii, 4, 320
+
+
+def mid_word_slabs(seed=18):
+    """Four slabs (gx 4) of 81, 109, 50 and 30 spheres, radii U(0, 0.1):
+    chunks of 17, 45, 50 and 30 live a-rows, whose last mask word ends
+    mid-word, in the first and in the second half. Returns (coords,
+    radii, gx, col_capacity)."""
+    rng = np.random.RandomState(seed)
+    parts = []
+    for x, k in enumerate((80, 109, 50, 29)):
+        c = rng.random((k, 3))
+        c[:, 0] = 0.02 + 0.21 * c[:, 0] + 0.25 * x
+        parts.append(c)
+    coords = np.concatenate(parts + [[[0, 0, 0], [1, 1, 1]]]) \
+        .astype(np.float32)
+    radii = rng.uniform(0, 0.1, len(coords)).astype(np.float32)
+    return coords, radii, 4, 128
+
+
+def odd_windows(seed=19):
+    """Three slabs (gx 3) of 127, 250 and 190 spheres, radii U(0, 0.05):
+    slab 1 starts at sorted position 127, so its chunks (and every window
+    opening at a slab start) start at odd positions, the first at a
+    stream row's last lane, and a warp's lane pair there spans two stream
+    rows. Returns (coords, radii, gx, col_capacity)."""
+    rng = np.random.RandomState(seed)
+    parts = []
+    for (x0, x1), k in zip(((0.01, 0.32), (0.34, 0.65), (0.67, 0.99)),
+                           (126, 250, 189)):
+        c = rng.random((k, 3))
+        c[:, 0] = x0 + (x1 - x0) * c[:, 0]
+        parts.append(c)
+    coords = np.concatenate(parts + [[[0, 0, 0], [1, 1, 1]]]) \
+        .astype(np.float32)
+    radii = rng.uniform(0, 0.05, len(coords)).astype(np.float32)
+    return coords, radii, 3, 256
+
+
+#: The slab kernels' cull at its edges: each scene returns (coords,
+#: radii, gx, col_capacity or None for ``slabs.default_slab_config``'s);
+#: ``SLAB_EDGES`` names the edges (:func:`slab_edges`) each must reach.
+SLAB_SCENES = {"touching_lattice": _slab_scene(touching_lattice),
+               "half_cell_radii": _slab_scene(half_cell_radii, gx=2),
+               "slab_beside_empty": slab_beside_empty,
+               "mid_word_slabs": mid_word_slabs,
+               "odd_windows": odd_windows}
+SLAB_EDGES = {"touching_lattice": {"touching_faces", "ulp_across_faces"},
+              "half_cell_radii": {"long_windows"},
+              "slab_beside_empty": {"empty_beside", "long_windows"},
+              "mid_word_slabs": {"mid_word_low", "mid_word_high"},
+              "odd_windows": {"odd_starts", "start_127"}}
+
+
+def slab_edges(stream, starts, w0, wcap, gx):
+    """The edges of the slab kernels that a slab plan's numpy fields
+    reach: "odd_starts" and "start_127" (a live window from an odd
+    position, from the last lane of a stream row), "long_windows" (one
+    past 128 lanes), "empty_beside" (a live slab beside an empty one),
+    "mid_word_low" / "mid_word_high" (a chunk whose last live a-row ends
+    inside its first or second mask word), "touching_faces" and
+    "ulp_across_faces" (a box of slab x whose x-hi equals the x-lo of a
+    box in slab x+1, or lies one ulp above it)."""
+    edges = set()
+    live = wcap.reshape(-1) > 0
+    w = w0.reshape(-1)[live]
+    if (w % 2 == 1).any():
+        edges.add("odd_starts")
+    if (w % 128 == 127).any():
+        edges.add("start_127")
+    if (wcap > 128).any():
+        edges.add("long_windows")
+    occ = np.diff(starts[:gx + 1].astype(np.int64))
+    if ((occ[:-1] > 0) & (occ[1:] == 0)).any():
+        edges.add("empty_beside")
+    ends = set((occ[occ > 0] % 64).tolist())
+    if ends & set(range(1, 32)):
+        edges.add("mid_word_low")
+    if ends & set(range(33, 64)):
+        edges.add("mid_word_high")
+    xlo = stream[:, 0, :].reshape(-1)
+    xhi = stream[:, 3, :].reshape(-1)
+    for x in range(gx - 1):
+        hi = xhi[starts[x]:starts[x + 1]]
+        lo = xlo[starts[x + 1]:starts[x + 2]]
+        if np.isin(hi, lo).any():
+            edges.add("touching_faces")
+        if np.isin(hi, np.nextafter(lo, _F32_INF)).any():
+            edges.add("ulp_across_faces")
+    return edges

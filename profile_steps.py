@@ -52,9 +52,13 @@ run-expansion fill). Prints one JSON line per reading:
   and the power-law route's parked column plan (rpw 3), and the column
   count kernels, rolled and aligned, at rpw 2 on the 1M plan, on
   ``auto``'s 262144-sphere plan and on the power-law parked plan (the
-  rolled one is the dual count's launch there), median of 15 samples of
-  20 calls in a row: the launches queue, so the time is the kernel's
-  device time.
+  rolled one is the dual count's launch there), and the slab count and
+  masks kernels at one row on the 1M slab plan (the count also as
+  ``slab_count_diag``'s cross-only pass: offset x+1, j > i + 48) and at
+  two rows on the giants route's parked slab plan, windows clamped to
+  the rows as the dual dispatch and the slab fill clamp them, median of
+  15 samples of 20 calls in a row: the launches queue, so the time is
+  the kernel's device time.
 
 Exits non-zero when there is no CUDA device or the divisor check fails.
 """
@@ -78,7 +82,7 @@ STEPS = 5
 
 #: The hand-written kernels, by their demangled names in the trace.
 KERNELS = re.compile(
-    r"::(slab_count_kernel<[01], (?:true|false)>|slab_masks_kernel<[01]>|"
+    r"::(slab_count_kernel<(?:true|false)>|slab_masks_kernel|"
     r"column_count_kernel<(?:true|false)>|column_masks_kernel|compact_kernel|"
     r"big_count_kernel|big_emit_kernel|pair_emit_kernel|row_popcount_kernel|"
     r"grid_count_kernel|grid_emit_kernel|"
@@ -204,6 +208,31 @@ def column_count_launcher(plan, rpw, rolled):
                       plan.starts.data_ptr(), plan.w0.data_ptr(),
                       plan.wcap.data_ptr(), plan.gxy ** 2, plan.mc, rpw,
                       int(rolled), total.data_ptr())
+    return launch
+
+
+def slab_launcher(plan, rpw, masks=False, first_off=0, dmin=0):
+    """A raw launch of the slab count (into one total allocated once) or
+    masks kernel (into one buffer) on a slab plan, at ``rpw`` rolled rows
+    with its windows clamped to rpw*128 lanes, as the dual dispatch and
+    the slab fill run it."""
+    import torch
+    from collision_tpu_torch.kernels import _build, sweep
+
+    wcap = torch.clamp_max(plan.wcap, rpw * 128)
+    tables = (plan.stream.data_ptr(), plan.starts.data_ptr(),
+              plan.w0.data_ptr(), wcap.data_ptr(), plan.gx, plan.mc, rpw)
+    if masks:
+        kg, ng = sweep.mask_groups(plan.mc, rpw)
+        out = torch.empty((plan.gx * ng, kg * 2 * rpw * 2, 128),
+                          dtype=torch.int32, device=plan.stream.device)
+        args = ("slab_masks_launch", *tables, kg, ng, out.data_ptr())
+    else:
+        out = torch.zeros((1,), dtype=torch.int64, device=plan.stream.device)
+        args = ("slab_count_launch", *tables, first_off, dmin, out.data_ptr())
+
+    def launch():
+        _build.launch(*args)
     return launch
 
 
@@ -345,9 +374,9 @@ def main():
     c64, r64 = coords.double(), radii.double()
     steps = {
         "count": (lambda: collide(coords, radii, 0, method="slab"),
-                  "slab_count_kernel<1, false>"),
+                  "slab_count_kernel<false>"),
         "fill": (lambda: collide(coords, radii, CAPACITY, method="slab"),
-                 "slab_masks_kernel<1>"),
+                 "slab_masks_kernel"),
         "column_count": (lambda: collide(coords, radii, 0, method="column"),
                          "column_count_kernel<true>"),
         "column_fill": (lambda: collide(coords, radii, CAPACITY,
@@ -394,6 +423,8 @@ def main():
                                      AUTO_SCENES[0][0]))
     pl_route = HETERO_ROUTES["hetero_powerlaw"][0]
     pl_plan = parked_plan(pl_coords, pl_radii, pl_route)[1]
+    gi_plan = parked_plan(gi_coords, gi_radii,
+                          HETERO_ROUTES["hetero_giants"][0])[1]
     launches = {
         "grid_count_gd24": lambda: grid_emit.count_launch(gbins, *gcfg,
                                                           False),
@@ -415,7 +446,13 @@ def main():
                                  DENSE_ROUTE["slab_rows"]),
             DENSE_ROUTE["rpw"]),
         "column_masks_1m": column_masks_launcher(cplan, 2),
-        "column_masks_powerlaw": column_masks_launcher(pl_plan, pl_route[4])}
+        "column_masks_powerlaw": column_masks_launcher(pl_plan, pl_route[4]),
+        "slab_count_1m": slab_launcher(plan, 1),
+        "slab_count_cross_1m": slab_launcher(plan, 1, first_off=1,
+                                             dmin=DIAG_D_MAX),
+        "slab_masks_1m": slab_launcher(plan, 1, masks=True),
+        "slab_count_giants": slab_launcher(gi_plan, 2),
+        "slab_masks_giants": slab_launcher(gi_plan, 2, masks=True)}
     for name, p in (("1m", cplan), ("262144", aplan), ("powerlaw", pl_plan)):
         for rolled, kind in ((True, "rolled"), (False, "aligned")):
             launches[f"column_count_{kind}_{name}"] = column_count_launcher(

@@ -18,6 +18,8 @@ from collision_tpu_torch.kernels import (_build, batched, bigpass, compact, emit
                                          halo, pair_emit, slab_sweep, sweep)
 from collision_tpu_torch.testing.scenes import COLUMN_SCENES as CULL_COLUMN_SCENES
 from collision_tpu_torch.testing.scenes import GRID_SCENES as CULL_GRID_SCENES
+from collision_tpu_torch.testing.scenes import SLAB_EDGES, slab_edges
+from collision_tpu_torch.testing.scenes import SLAB_SCENES as CULL_SLAB_SCENES
 from collision_tpu_torch.testing.scenes import touching_big_pass
 
 pytestmark = pytest.mark.cuda
@@ -235,9 +237,14 @@ def _signed_zeros_and_nans(cuda):
     plan = columns.plan_columns(torch.from_numpy(coords).to(cuda),
                                 torch.from_numpy(radii).to(cuda), gxy, cap,
                                 rows)
+    return _zeros_and_nans(plan, len(coords))
+
+
+def _zeros_and_nans(plan, n):
+    """``plan`` with the x bounds of half its n spheres +0 or -0 and one
+    bound of a tenth of them NaN of either sign."""
     rng = np.random.RandomState(16)
     stream = plan.stream.clone()
-    n = len(coords)
     for p in rng.permutation(n)[: n // 2]:
         r, l = divmod(int(p), 128)
         stream[r, 0, l] = float(rng.choice([-0.0, 0.0]))
@@ -370,6 +377,68 @@ def test_big_kernels_match_plain(cuda, engine):
             assert torch.equal(g, w)
     assert _build.LAUNCHES["big_count"] == before["big_count"] + 1
     assert _build.LAUNCHES["big_pairs"] == before["big_pairs"] + 4
+
+
+def _slab_plan(name, cuda):
+    coords, radii, gx, cap = CULL_SLAB_SCENES[name]()
+    gx, default_cap, rows = slabs.default_slab_config(len(coords), gx=gx)
+    plan = slabs.plan_slabs(torch.from_numpy(coords).to(cuda),
+                            torch.from_numpy(radii).to(cuda), gx,
+                            cap or default_cap, rows)
+    assert bool(plan.ok)
+    return plan, len(coords)
+
+
+def _check_slab_kernels(plan, rpws=(1, 2)):
+    """The slab count kernel at first_off 0 and 1, dmin 0 and 48, and the
+    slab masks kernel, at each of ``rpws`` rolled rows, == their plain
+    versions, one launch each. Returns the masks' nonzero words."""
+    args = (plan.stream, plan.starts, plan.w0, plan.wcap)
+    words = 0
+    for rpw in rpws:
+        for first_off in (0, 1):
+            for dmin in (0, 48):
+                kw = {"rpw": rpw, "first_off": first_off, "dmin": dmin}
+                before = _build.LAUNCHES["slab_count"]
+                assert int(slab_sweep.slab_window_count(*args, **kw)) \
+                    == int(slab_sweep.slab_window_count_plain(*args, **kw))
+                assert _build.LAUNCHES["slab_count"] == before + 1
+        before = _build.LAUNCHES["slab_masks"]
+        got = slab_sweep.slab_masks(*args, rpw=rpw)
+        assert _build.LAUNCHES["slab_masks"] == before + 1
+        assert torch.equal(got, slab_sweep.slab_masks_plain(*args, rpw=rpw))
+        words += int(got.ne(0).sum())
+    return words
+
+
+@pytest.mark.parametrize("name", sorted(CULL_SLAB_SCENES))
+def test_slab_kernels_match_plain_on_cull_edges(cuda, name):
+    # The slab kernels' cull at its edges (testing/scenes.py): boxes
+    # touching across slab faces and a ulp across, chunks that end inside
+    # either mask word, windows from odd positions and from a stream
+    # row's last lane, a slab beside an empty one, windows past 128 lanes.
+    plan, _ = _slab_plan(name, cuda)
+    assert SLAB_EDGES[name] <= slab_edges(
+        *(t.cpu().numpy() for t in (plan.stream, plan.starts, plan.w0,
+                                    plan.wcap)), plan.gx)
+    assert _check_slab_kernels(plan) > 0
+    # Windows shifted by 1 and by 65 lanes (odd starts; starts inside a
+    # 64-lane segment of the count's walk), cut at the stream's end.
+    npos = plan.stream.shape[0] * 128
+    for shift in (1, 65):
+        w0 = plan.w0 + shift
+        shifted = plan._replace(w0=w0, wcap=torch.minimum(
+            plan.wcap, npos - w0).clamp(min=0))
+        assert bool((shifted.wcap > 0).any())
+        _check_slab_kernels(shifted)
+
+
+def test_slab_kernels_signed_zeros_and_nans(cuda):
+    # The slab kernels test by the sign bits of float differences, as the
+    # column kernels do: signed zeros and NaNs must give the plain
+    # version's counts and words.
+    plan = _zeros_and_nans(*_slab_plan("mid_word_slabs", cuda))
+    assert _check_slab_kernels(plan) > 0
 
 
 def test_slab_kernels_at_two_rows_match_plain(cuda):

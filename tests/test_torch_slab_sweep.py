@@ -13,6 +13,7 @@ from collision_tpu.kernels import slab_sweep as jsweep
 from collision_tpu_torch import slabs
 from collision_tpu_torch.kernels import compact, slab_sweep
 from collision_tpu_torch.testing import brute_force_collisions
+from collision_tpu_torch.testing.scenes import SLAB_EDGES, SLAB_SCENES, slab_edges
 
 SCENES = [
     # n, r_max, seed, gx (None: default config)
@@ -26,11 +27,17 @@ def _plans(n, r_max, seed, gx):
     rng = np.random.RandomState(seed)
     coords = rng.random((n, 3)).astype("float32")
     radii = rng.uniform(0, r_max, n).astype("float32")
-    gx, cap, rows = slabs.default_slab_config(n, gx=gx)
-    jp = jslabs.plan_slabs(jnp.asarray(coords), jnp.asarray(radii), gx, cap, rows)
+    return (coords, radii) + _plans_of(coords, radii, gx)
+
+
+def _plans_of(coords, radii, gx, cap=None):
+    """(JAX plan, the port's plan from its fields)."""
+    gx, default_cap, rows = slabs.default_slab_config(len(coords), gx=gx)
+    jp = jslabs.plan_slabs(jnp.asarray(coords), jnp.asarray(radii), gx,
+                           cap or default_cap, rows)
     d = {k: np.asarray(v) if hasattr(v, "shape") else v
          for k, v in jp._asdict().items()}
-    return coords, radii, jp, slabs.plan_from_numpy(d, "cpu")
+    return jp, slabs.plan_from_numpy(d, "cpu")
 
 
 @pytest.mark.parametrize("scene", SCENES)
@@ -49,6 +56,31 @@ def test_slab_masks_plain_matches_pallas(scene):
     want = np.asarray(jsweep.slab_sweep_masks(clamped, rpw=1, interpret=True))
     got = slab_sweep.slab_sweep_masks(tp)
     assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("name", sorted(SLAB_SCENES))
+def test_slab_plain_matches_pallas_on_cull_edges(name):
+    # The card kernels' cull at its edges (testing/scenes.py): each scene
+    # reaches its edge; the count at two rolled rows, the cross-only pass
+    # of slab_count_diag (offset x+1, j > i + 48) and the masks at two
+    # rows, held to the JAX kernels.
+    jp, tp = _plans_of(*SLAB_SCENES[name]())
+    assert bool(tp.ok)
+    assert SLAB_EDGES[name] <= slab_edges(
+        *(t.numpy() for t in (tp.stream, tp.starts, tp.w0, tp.wcap)), tp.gx)
+    args = (tp.stream, tp.starts, tp.w0, tp.wcap)
+    for rpw, offsets, dmin in ((2, (0, 1), 0), (1, (1,), 48)):
+        want, _ = jsweep._slab_count(
+            jp.stream, jp.starts, jp.slab_r0, jp.w0, jp.wcap, jp.gx, jp.mc,
+            jp.slab_rows, rpw, True, 1, offsets, dmin)
+        got = slab_sweep.slab_window_count_plain(*args, rpw=rpw,
+                                                 first_off=offsets[0],
+                                                 dmin=dmin)
+        assert int(got) == int(want)
+    want = np.asarray(jsweep.slab_sweep_masks(jp, rpw=2, interpret=True))
+    got = slab_sweep.slab_masks_plain(*args, rpw=2)
+    assert int((got != 0).sum()) > 0
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
