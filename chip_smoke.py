@@ -60,8 +60,8 @@ on the reference's dense scene:
    k-d tree oracle, and ``Collider(1000, coord_dtype="float64")`` on 1000
    spheres at one point, whose first step overflows the default candidate
    bound and whose retry must return all 499,500 pairs;
-11. the grid count, column masks, slab count and masks and big pass
-   kernels at the edges of their cull (``cull_edges``,
+11. the grid count and emission, column masks, slab count and masks and
+   big pass kernels at the edges of their cull (``cull_edges``,
    collision_tpu_torch/testing/scenes.py): boxes that touch across cell,
    column and slab faces and one ulp across, radii of half a cell, a
    305-row cell beside an empty one, a full column or slab beside an
@@ -71,7 +71,10 @@ on the reference's dense scene:
    bigs on the faces of the rows' union boxes beside rows of pad and of
    parked lanes, each against its plain version (tile counts, totals,
    masks, row counts, pair buffers; the slab count at first offsets 0
-   and 1 and dmin 0 and 48, the slab masks at one and two rows).
+   and 1 and dmin 0 and 48, the slab masks at one and two rows; the grid
+   emission fed the hit tiles alone and the fill's own entries, with and
+   without the hit count, at room for every pair, inside a tile, at one
+   slot and at a tile boundary).
 
 Each engine's main path, and each of the phases above, runs with the
 kernel launch counters reset just before and read just after; the slab
@@ -99,8 +102,13 @@ sweep kernels' tests, the column and the slab counts' and masks', are
 each window lane's against the 32-row mask words whose union box it
 meets, as the kernels cull them (beside them, ``dense_tests``, every
 live a-row against the window), and these records give both times of
-the bound; the diagonal count's phase adds the bound of
-its cross-only slab count. The column count kernels are checked and
+the bound; the diagonal count's record gives both times of its bound and
+its tests beside the ones it runs (``dense_tests``: its whole domain,
+pads included, against the next d_max), and its phase adds the bound of
+its cross-only slab count. The grid emission's record is timed at the
+fill's own launch (every entry of the compacted hit list and the hit
+count on the card), with the hit tiles alone beside it
+(``hit_tiles_ms``). The column count kernels are checked and
 timed on the 1M column plan (their records), on ``auto``'s 262144 plan
 and on the power-law parked plan (``column_plan_work`` lines, beside
 the masks kernel); ``big_pairs``' record adds
@@ -898,6 +906,36 @@ def grid_kernels_agree(bins, gd, mc, label):
     return err, total
 
 
+def grid_emit_agrees(bins, gd, mc, label):
+    """The grid emission kernel against its plain version on one set of
+    bins, bit for bit: fed the hit tiles alone and the fill's own entries
+    (with and without the hit count), at room for every pair, inside the
+    first tile of two pairs or more, at one slot and at a tile boundary.
+    Returns max_abs_err."""
+    import torch
+    from collision_tpu_torch.kernels import emit
+
+    flat = emit.halo_tile_counts(bins, gd, mc).reshape(-1)
+    total = int(flat.sum())
+    tiles = torch.nonzero(flat).flatten()
+    bases = (torch.cumsum(flat, 0) - flat)[tiles]
+    first = int(torch.nonzero(flat[tiles] >= 2)[0])
+    err = 0
+    for capacity in (total + 64, int(bases[first]) + 1, 1,
+                     int(bases[len(tiles) // 2])):
+        args = (bins, tiles, bases, gd, mc, capacity)
+        want = emit.emit_pairs_plain(*args)
+        ft, fb, n_hit = emit.fill_entries(flat, capacity)
+        for got in (emit.emit_pairs(*args),
+                    emit.emit_pairs(bins, ft, fb, gd, mc, capacity,
+                                    n_hit=n_hit),
+                    emit.emit_pairs(bins, ft, fb, gd, mc, capacity)):
+            err = max(err, max_abs_err(got, want))
+    check(err == 0, f"{label}: grid emission kernel == plain, hit tiles and "
+          f"fill entries, 4 capacities (max_abs_err {err})")
+    return err
+
+
 def big_kernels_agree(bigs, stream, label):
     """The big count kernel against its plain version on one table and
     stream: the total, the row counts, and big_pairs' buffers at room
@@ -977,11 +1015,13 @@ def cull_edges(dev):
                                       torch.from_numpy(radii).to(dev), gd, mc)
         check(bool(ok), f"{name}: bins ok")
         totals[name] = grid_kernels_agree(bins, gd, mc, name)[1]
+        grid_emit_agrees(bins, gd, mc, name)
     _, _, coords, radii = uniform_scene(ORACLE_N, dev, DENSE_R)
     bins, ok, _ = grid.build_grid(coords, radii, *DENSE_GRID)
     check(bool(ok), f"dense grid {DENSE_GRID}: bins ok")
     totals["dense_grid"] = grid_kernels_agree(bins, *DENSE_GRID,
                                               "dense grid")[1]
+    grid_emit_agrees(bins, *DENSE_GRID, "dense grid")
     for name, scene in COLUMN_SCENES.items():
         coords, radii, gxy, cap = scene()
         gxy, default_cap, rows = columns.default_column_config(len(coords),
@@ -1115,17 +1155,28 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
     args = (bins, tiles, bases, gd, mc, CAPACITY)
     got = emit.emit_pairs(*args)
     check(torch.equal(got, res_fill.pairs), "emit_pairs == the grid fill")
-    # Bytes: the hit tiles' filled rows (32 bytes each), the tile table,
-    # and the [CAPACITY, 2] uint32 buffer written once.
+    # The fill's own launch: every entry of the compacted hit list
+    # (min(CAPACITY, tiles) of them) and the hit count on the card.
+    ft, fb, n_hit = emit.fill_entries(flat, CAPACITY)
+    fargs = (bins, ft, fb, gd, mc, CAPACITY)
+    fgot = emit.emit_pairs(*fargs, n_hit=n_hit)
+    check(torch.equal(fgot, res_fill.pairs),
+          "emit_pairs on the fill's entries and hit count == the grid fill")
+    # Bytes: the hit tiles' filled rows (32 bytes each), their entries, the
+    # hit count and the [CAPACITY, 2] uint32 buffer written once.
     record("grid_emit", "collision_tpu_torch/csrc/grid.cu",
            "collision_tpu/kernels/emit.py:135",
-           max_abs_err(got, emit.emit_pairs_plain(*args)),
-           lambda: emit.emit_pairs(*args),
-           lambda: emit.emit_pairs_plain(*args),
+           max(max_abs_err(got, emit.emit_pairs_plain(*args)),
+               max_abs_err(fgot, emit.emit_pairs_plain(*fargs, n_hit=n_hit))),
+           lambda: emit.emit_pairs(*fargs, n_hit=n_hit),
+           lambda: emit.emit_pairs_plain(*fargs, n_hit=n_hit),
            32 * int(rows.reshape(-1)[tiles].sum()) + nbytes(tiles, bases)
-           + 8 * CAPACITY, int(tests.reshape(-1)[tiles].sum()),
+           + 8 + 8 * CAPACITY, int(tests.reshape(-1)[tiles].sum()),
            plain_batch=1, plain_reps=3,
-           dense_tests=int(dense_tests.reshape(-1)[tiles].sum()))
+           dense_tests=int(dense_tests.reshape(-1)[tiles].sum()),
+           extra={"entries": ft.numel(), "hit_tiles": int(n_hit),
+                  "hit_tiles_ms": time_ms(lambda: emit.emit_pairs(*args),
+                                          batch=KERNEL_BATCH)})
 
     # halo_pairs' count on the default bins: the kernel batched_count
     # launches, through the other wrapper.
@@ -1208,11 +1259,15 @@ def diag_path(dev, record, launches, coords, radii, expected):
     # and the d_max + 1 after them (the id channel and the +inf pad rows
     # are never needed), diag_thr, and the two int64 counts out.
     moved = 7 * 4 * (N + DIAG_D_MAX + 1) + nbytes(plan.diag_thr) + 16
+    # Beside them, the tests the kernel runs: every position of its domain,
+    # pads included, against the next DIAG_D_MAX.
+    domain = slab_sweep._diag_positions(plan.stream, DIAG_D_MAX)
     record("diag_count", "collision_tpu_torch/csrc/slab_sweep.cu",
            "collision_tpu/kernels/slab_sweep.py:43", err,
            lambda: slab_sweep.diag_count(*dargs),
            lambda: slab_sweep.diag_count_plain(*dargs),
-           moved, tests, plain_batch=2)
+           moved, tests, plain_batch=2, dense_tests=domain * DIAG_D_MAX,
+           extra={"bound": bounds(moved, tests)})
     # The cross-only slab count that slab_count_diag launches (offset x+1,
     # j > i + d_max): the tests its per-word cull leaves.
     cross, cross_window = mask_tests(plan, 1, True, noff=2, first_off=1,

@@ -45,33 +45,49 @@
 // block of two y-adjacent centers sharing their neighbourhood was
 // 15-22% slower than that.)
 //
-// The emission: one 128-thread block per hit tile, the b cell's rows in
-// registers (lane l holding rows l, l+32, l+64 and l+96 of a 128-row
-// chunk), each warp walking the a rows, which all its lanes read at one
-// address (a broadcast load). It ranks hits without the TPU's cursor:
-// pass 1 counts each a row's hits (warp ballots and __popc), a block scan
-// turns the counts into row offsets, pass 2 tests again and writes hit
-// (i, j) at base + row offset + the row's hits before j, below capacity
-// only, with int64 slots: row-major, the order of the TPU kernel's
-// sequential extraction. It tests every live pair of its tiles (not yet
-// culled). Ids are read as bits, never converted (small ids are
-// denormals). Built without --use_fast_math.
+// The emission: at 1M its inputs are the 4873 hit tiles' rows and the
+// 5940 pairs, 0.0037 ms of bytes; the fill launches it on 16384 entries
+// (capacity 16384) of which 4873 are hit tiles, most of them self tiles
+// holding one or two pairs among ~2,570 live tests. What holds it is the
+// chain of dependent loads, tests and votes within a tile, not bytes or
+// tests. The design: a warp per entry, four a block, in one pass. The
+// warp holds the b cell's rows in registers and stages the a cell in
+// shared memory (128-row chunks; a self tile writes its registers), then
+// walks the a rows in ascending order, testing each against every 32-row
+// group of b without branches; only when some lane hit (one warp vote)
+// does it rank the hits, writing each at the running slot plus
+// the hits of the lanes below (ballot and __popc): row-major, the order
+// of the TPU kernel's sequential extraction, with no count pass, block
+// scan or barrier. The fill's entries stop once they reach the next
+// entry's base (their own count of pairs), and entries past the
+// device-side hit count are not read, so no host sync sizes the launch.
+// Neighbour tiles are culled by union boxes as in the count (cull.cuh);
+// self tiles are not. On an H100 at the 1M fill this takes 0.040 ms
+// against the earlier block-a-tile kernel's 0.104; without the vote
+// 0.058, without the stop 0.070, one wave of resident blocks striding
+// over the entries 0.043, without the cull 0.040 (0.34 against 0.29 on
+// the dense oracle scene's grid (8, 192)); two rows a vote 0.038, but
+// 0.45 on that dense grid (emit_diag_variants.py). A b cell of more
+// than 128 live rows reloads its chunks for each a row; on the dense
+// grid, cells of ~128 rows, the emission matches the block kernel
+// (0.29 ms each). Slots are int64 and written below capacity only. Ids
+// are read as bits, never converted (small ids are denormals). Built
+// without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_scan.cuh"
+#include <algorithm>
+
 #include "cull.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int BREG = 4;              // b rows a lane holds per chunk
-constexpr int BCHUNK = 32 * BREG;    // b rows per chunk; a rows per emission chunk
+constexpr int BCHUNK = 32 * BREG;    // rows per staged chunk
+constexpr int EMIT_WARPS = 4;        // emission entries a block, one a warp
+constexpr long long EMIT_MAX_BLOCKS = 1 << 20;   // then a grid-stride loop
 constexpr unsigned FULL = 0xffffffffu;
-
-static_assert(BCHUNK == THREADS, "the emission scans one a row per thread");
 
 struct Row {
   float lo[3], hi[3];
@@ -119,28 +135,15 @@ __device__ __forceinline__ bool overlaps(const Row& a, const Row& b) {
          (a.hi[2] > b.lo[2]) & (a.lo[2] < b.hi[2]);
 }
 
-// 1 + the index of the cell's last live row (0 when it has none), by a
-// block-wide atomicMax into *occ, which the caller zeroed.
-__device__ __forceinline__ void cell_occupancy(const float4* __restrict__ cell,
-                                               int M, int* occ) {
-  for (int i = threadIdx.x; i < M; i += blockDim.x)
-    if (live(cell[2 * i].x)) atomicMax(occ, i + 1);
-}
-
-// The lane's rows b0 + 32g + lane (g < BREG) of a b cell, dead past M.
-// Returns the number of 32-row groups up to the chunk's last live row,
-// the same in every lane of the warp.
-__device__ __forceinline__ int load_b(const float4* __restrict__ cell, int M,
-                                      int b0, Row (&b)[BREG]) {
+// The lane's rows q*BCHUNK + 32g + lane (g < BREG) of a cell, dead past M.
+__device__ __forceinline__ void load_chunk(const float4* __restrict__ cell,
+                                           int M, int q, Row (&b)[BREG]) {
   const int lane = threadIdx.x & 31;
-  int groups = 0;
 #pragma unroll
   for (int g = 0; g < BREG; ++g) {
-    const int j = b0 + 32 * g + lane;
+    const int j = q * BCHUNK + 32 * g + lane;
     b[g] = j < M ? load_row(cell, j) : dead_row();
-    if (__ballot_sync(FULL, live(b[g].lo[0]))) groups = g + 1;
   }
-  return groups;
 }
 
 // The neighbour cell offset of tile o: o = 0 the cell itself, o = 1..13
@@ -277,94 +280,169 @@ grid_count_kernel(const float4* __restrict__ bins, int gd, int M,
   }
 }
 
-// Block = entry e: tile tiles[e], first slot bases[e]; an entry whose base
-// is at or past capacity writes nothing.
-__global__ void __launch_bounds__(THREADS)
+// Writes a row's hits (hit[g]: b row 32g + lane of the chunk in
+// registers) at slot on, below capacity, in ascending b order; moves slot
+// past them.
+__device__ __forceinline__ void rank_and_write(const bool (&hit)[BREG], int id,
+                                               const Row (&b)[BREG],
+                                               unsigned below,
+                                               long long capacity,
+                                               int2* __restrict__ pairs,
+                                               long long& slot) {
+#pragma unroll
+  for (int g = 0; g < BREG; ++g) {
+    const unsigned m = __ballot_sync(FULL, hit[g]);
+    const long long s = slot + __popc(m & below);
+    if (hit[g] && s < capacity) pairs[s] = make_int2(id, b[g].id);
+    slot += __popc(m);
+  }
+}
+
+// Warp = entry e (a grid-stride loop over the entries): tile tiles[e],
+// first slot bases[e]; an entry whose base is at or past capacity, or
+// whose tile is not a tile (NO_INDEX), writes nothing. With n_hit (the
+// fill's entries: the *n_hit hit tiles in ascending order, each base the
+// exclusive scan of every tile's count) only the first *n_hit entries
+// are read, and entry e stops once it reaches the next entry's base.
+//
+// The warp walks the tile row-major in one pass: the a rows in ascending
+// order (staged in shared memory in 128-row chunks), and for each the b
+// rows in ascending 32-row groups (in registers, lane l holding rows l,
+// l+32, l+64 and l+96 of a 128-row chunk). A group's hits take slots
+// slot + __popc(ballot & the lanes below) and slot moves on by
+// __popc(ballot): no count pass, no scan, no barrier. A b cell of more
+// than 128 live rows reloads its chunks for each a row. On a neighbour
+// tile only the a rows that meet the b cell's union box are walked, and
+// only the b groups that hold a row meeting the a chunk's union are kept
+// (cull.cuh: exact).
+__global__ void __launch_bounds__(32 * EMIT_WARPS)
 grid_emit_kernel(const float4* __restrict__ bins, int gd, int M, int tile_pad,
                  const long long* __restrict__ tiles,
-                 const long long* __restrict__ bases, long long capacity,
+                 const long long* __restrict__ bases, long long h,
+                 const long long* __restrict__ n_hit, long long capacity,
                  int2* __restrict__ pairs) {
-  const long long e = blockIdx.x;
-  const long long base = bases[e];
-  const long long t = tiles[e];
-  const long long col = t / tile_pad;
-  const int zo = static_cast<int>(t % tile_pad);
-  if (base >= capacity || t < 0 || col >= static_cast<long long>(gd) * gd ||
-      zo >= 14 * gd)
-    return;
-  const int z = zo / 14, o = zo % 14;
-  const int x = static_cast<int>(col / gd), y = static_cast<int>(col % gd);
-  const Offset d = tile_offset(o);
-  const int gp = gd + 2;
-  const float4* ac = cell_rows(bins, gp, M, x + 1, y + 1, z + 1);
-  const float4* bc = cell_rows(bins, gp, M, x + 1 + d.dx, y + 1 + d.dy,
-                               z + 1 + d.dz);
+  __shared__ float4 stage[EMIT_WARPS][2 * BCHUNK];   // each warp's a chunk
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* sa = stage[warp];
   const unsigned below = (1u << lane) - 1;
+  const long long entries = n_hit ? min(h, *n_hit) : h;
+  const long long stride = static_cast<long long>(gridDim.x) * EMIT_WARPS;
+  const int gp = gd + 2;
 
-  __shared__ int amax;
-  __shared__ int row_off[BCHUNK];   // a row's hits, then its next slot
-  if (threadIdx.x == 0) amax = 0;
-  __syncthreads();
-  cell_occupancy(ac, M, &amax);
-  __syncthreads();
-  const int na = amax;
+  for (long long e = static_cast<long long>(blockIdx.x) * EMIT_WARPS + warp;
+       e < entries; e += stride) {
+    const long long base = bases[e];
+    const long long t = tiles[e];
+    const long long col = t / tile_pad;
+    const int zo = static_cast<int>(t % tile_pad);
+    if (base >= capacity || t < 0 || col >= static_cast<long long>(gd) * gd ||
+        zo >= 14 * gd)
+      continue;
+    // One past the entry's last slot that is written.
+    const long long end =
+        n_hit && e + 1 < entries ? min(capacity, bases[e + 1]) : capacity;
+    const int z = zo / 14, o = zo % 14;
+    const int x = static_cast<int>(col / gd), y = static_cast<int>(col % gd);
+    const Offset d = tile_offset(o);
+    const float4* ac = cell_rows(bins, gp, M, x + 1, y + 1, z + 1);
+    const float4* bc = cell_rows(bins, gp, M, x + 1 + d.dx, y + 1 + d.dy,
+                                 z + 1 + d.dz);
+    const bool self = o == 0;
+    const bool by_union = !self;   // neighbour tiles: culled by unions
 
-  long long carry = base;   // the same in every thread
-  for (int a0 = 0; a0 < na && carry < capacity; a0 += BCHUNK) {
-    const int rows = min(BCHUNK, na - a0);
-    row_off[threadIdx.x] = 0;
-    __syncthreads();
-    // Pass 1: the hits of each a row of the chunk.
-    for (int b0 = 0; b0 < M; b0 += BCHUNK) {
-      Row b[BREG];
-      const int groups = load_b(bc, M, b0, b);
-      if (groups == 0) continue;
-      for (int r = warp; r < rows; r += WARPS) {
-        const int i = a0 + r;
-        const Row a = load_row(ac, i);
-        int c = 0;
+    // The b cell: its union ub and nb = 1 + its last live row, over every
+    // chunk; the registers keep chunk bq, the last one loaded.
+    Row b[BREG];
+    int bq = 0, nb = 0;
+    cull::Box ub = cull::empty();
+    for (int q = 0; q * BCHUNK < M; ++q) {
+      bq = q;
+      load_chunk(bc, M, q, b);
 #pragma unroll
-        for (int g = 0; g < BREG; ++g)
-          if (g < groups)
-            c += __popc(__ballot_sync(
-                FULL, overlaps(a, b[g]) & (o != 0 || b0 + 32 * g + lane > i)));
-        if (lane == 0) row_off[r] += c;
+      for (int g = 0; g < BREG; ++g) {
+        cull::add(ub, b[g]);
+        const unsigned lv = __ballot_sync(FULL, live(b[g].lo[0]));
+        if (lv) nb = q * BCHUNK + 32 * g + 32 - __clz(lv);
       }
     }
-    __syncthreads();
-    int chunk_hits;
-    const int off = scan::block_exclusive_scan(row_off[threadIdx.x],
-                                               &chunk_hits);
-    row_off[threadIdx.x] = off;
-    __syncthreads();
-    // Pass 2: each hit at its slot, row-major.
-    for (int b0 = 0; b0 < M; b0 += BCHUNK) {
-      Row b[BREG];
-      const int groups = load_b(bc, M, b0, b);
-      if (groups == 0) continue;
-      for (int r = warp; r < rows; r += WARPS) {
-        long long slot = carry + row_off[r];
-        if (slot >= capacity) continue;
-        const int i = a0 + r;
-        const Row a = load_row(ac, i);
+    if (by_union) ub = cull::warp_union(ub);
+    const int nbq = (nb + BCHUNK - 1) / BCHUNK;
+
+    long long slot = base;
+    unsigned keep = 0;       // groups of chunk kq that can meet a chunk kp
+    int kp = -1, kq = -1;
+    for (int p = 0; p * BCHUNK < M && slot < end; ++p) {
+      // Stage a chunk p, dead past M, with its union ua and na = 1 + its
+      // last live row; a self tile's chunk in the registers is written
+      // from them.
+      __syncwarp();   // the previous chunk's readers are done
+      cull::Box ua = cull::empty();
+      int na = 0;
 #pragma unroll
-        for (int g = 0; g < BREG; ++g) {
-          if (g < groups) {
-            const bool hit =
-                overlaps(a, b[g]) & (o != 0 || b0 + 32 * g + lane > i);
-            const unsigned m = __ballot_sync(FULL, hit);
-            const long long s = slot + __popc(m & below);
-            if (hit && s < capacity) pairs[s] = make_int2(a.id, b[g].id);
-            slot += __popc(m);
+      for (int g = 0; g < BREG; ++g) {
+        const int r = 32 * g + lane, i = p * BCHUNK + r;
+        float4 lo, hi;
+        if (self && bq == p) {
+          lo = make_float4(b[g].lo[0], b[g].lo[1], b[g].lo[2],
+                           __int_as_float(b[g].id));
+          hi = make_float4(b[g].hi[0], b[g].hi[1], b[g].hi[2], 0.0f);
+        } else if (i < M) {
+          lo = ac[2 * i];
+          hi = ac[2 * i + 1];
+        } else {
+          lo = hi = make_float4(pos_inf(), pos_inf(), pos_inf(), 0.0f);
+        }
+        sa[2 * r] = lo;
+        sa[2 * r + 1] = hi;
+        cull::add(ua, row_of(lo, hi));
+        const unsigned lv = __ballot_sync(FULL, live(lo.x));
+        if (lv) na = 32 * g + 32 - __clz(lv);
+      }
+      if (by_union) ua = cull::warp_union(ua);
+      __syncwarp();
+
+      for (int k = 0; 32 * k < na && slot < end; ++k) {
+        const Row mine = load_row(sa, 32 * k + lane);
+        unsigned am = __ballot_sync(
+            FULL, live(mine.lo[0]) && (!by_union || cull::meets(mine, ub)));
+        while (am && slot < end) {
+          const int r = 32 * k + __ffs(am) - 1;
+          am &= am - 1;
+          const int i = p * BCHUNK + r;
+          const Row a = load_row(sa, r);
+          for (int q = self ? i / BCHUNK : 0; q < nbq && slot < end; ++q) {
+            if (q != bq) {
+              load_chunk(bc, M, q, b);
+              bq = q;
+            }
+            if (kp != p || kq != q) {
+              keep = 0;
+#pragma unroll
+              for (int g = 0; g < BREG; ++g)
+                if (__ballot_sync(FULL, by_union ? cull::meets(b[g], ua)
+                                                 : live(b[g].lo[0])))
+                  keep |= 1u << g;
+              kp = p;
+              kq = q;
+            }
+            // Test the row against every group of the chunk, without
+            // branches (masks, not skips); rank and write only when some
+            // lane hit (most rows hit nothing).
+            bool hit[BREG];
+            bool any = false;
+#pragma unroll
+            for (int g = 0; g < BREG; ++g) {
+              const int j = q * BCHUNK + 32 * g + lane;
+              hit[g] = (keep >> g & 1u) & overlaps(a, b[g]) &
+                       (!self | (j > i));
+              any |= hit[g];
+            }
+            if (__any_sync(FULL, any))
+              rank_and_write(hit, a.id, b, below, capacity, pairs, slot);
           }
         }
-        if (lane == 0) row_off[r] = static_cast<int>(slot - carry);
-        __syncwarp();
       }
     }
-    carry += chunk_hits;
-    __syncthreads();   // row_off is reset for the next chunk
   }
 }
 
@@ -386,20 +464,26 @@ extern "C" int grid_count_launch(const float* bins, int gd, int M, int* tc,
 }
 
 // The pairs of h tiles (tiles int64[h] flat tile ids) at their first slots
-// bases int64[h], as (id_a, id_b) int32 pairs into
-// pairs[capacity]; slots at or past capacity are not written.
+// bases int64[h], as (id_a, id_b) int32 pairs into pairs[capacity]; slots
+// at or past capacity are not written. n_hit (may be null): the device
+// count of the fill's hit tiles, which lead the entries in ascending order
+// with bases scanned from every tile's count; entries from it on are not
+// read.
 extern "C" int grid_emit_launch(const float* bins, int gd, int M, int tile_pad,
                                 const long long* tiles, const long long* bases,
-                                long long h, long long capacity, int* pairs,
-                                void* stream) {
-  if (gd < 1 || M < 1 || tile_pad < 14 * gd || h < 0 || h > 0x7fffffffLL ||
-      !tiles || !bases || (reinterpret_cast<uintptr_t>(bins) & 15) ||
+                                long long h, const long long* n_hit,
+                                long long capacity, int* pairs, void* stream) {
+  if (gd < 1 || M < 1 || tile_pad < 14 * gd || h < 0 || !tiles || !bases ||
+      (reinterpret_cast<uintptr_t>(bins) & 15) ||
       (reinterpret_cast<uintptr_t>(pairs) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (h > 0 && capacity > 0)
-    grid_emit_kernel<<<static_cast<unsigned>(h), THREADS, 0,
+  if (h > 0 && capacity > 0) {
+    const long long blocks =
+        std::min((h + EMIT_WARPS - 1) / EMIT_WARPS, EMIT_MAX_BLOCKS);
+    grid_emit_kernel<<<static_cast<unsigned>(blocks), 32 * EMIT_WARPS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(bins), gd, M, tile_pad, tiles, bases,
-        capacity, reinterpret_cast<int2*>(pairs));
+        h, n_hit, capacity, reinterpret_cast<int2*>(pairs));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,16 +38,30 @@
 //
 // The diagonal count tests every sorted position i against i+1 .. i+d_max,
 // and runs the missed-pair detector at i+d_max+1. At 1M spheres and the
-// default d_max of 48 that is ~48M box tests over a 33 MB stream: a few
-// microseconds of compares against ~10 us of bytes, so it is bound by the
-// stream's bytes. One thread per position holds its box in registers; the
-// block stages the boxes of its 256 positions and the d_max after them in
-// shared memory once, read coalesced, and each thread walks its diagonal
-// there (consecutive threads read consecutive words: no bank conflicts).
-// The TPU kernel's block pairing (a 32-row block beside its successor),
-// lane rolls and static unroll over the diagonals have no use here and are
-// gone; its skipped last block is kept as the domain's end. Totals reduce
-// per block and add one integer atomic each, so both are deterministic.
+// default d_max of 48 that is 47,998,824 box tests over the stream's
+// channels 0-5 and 7: 0.0043 ms of float compares at the float32 peak
+// against 0.0084 ms of bytes, so its bound is bytes. One position a
+// thread (the port's first kernel) loaded six shared words a test and
+// took 0.047 ms. Here each thread takes DIAG_K = 8 consecutive positions
+// and holds their boxes in registers; it loads each of the d_max + 7
+// partner columns once and tests it against every one of its boxes that
+// reaches it, by the column kernels' sign-bit test (column_tile.cuh). Two
+// exact warp votes skip a column: where its zlo is at or past the highest
+// zhi of each thread's boxes (the stream is in z order within a slab, so
+// beyond ~24 positions no column passes), then where it meets no box in
+// y. The block stages its 1024 positions and the d_max + 1 after them
+// (channels 0-5 and 7) in shared memory once, 16-byte loads with a column
+// group's seven channels in flight together, one pad word every DIAG_K
+// columns so that a warp's strided reads hit 32 banks; the detector reads
+// the same staged columns. On an H100 at 1M and d_max 48 this takes
+// 0.024 ms: its staging alone (d_max 0) 0.011, without the votes 0.028
+// and 0.027, with the loads a channel at a time 0.029, DIAG_K 4 within 2%
+// and 16 0.033 (154 registers), six float compares 0.028
+// (emit_diag_variants.py). The TPU kernel's block pairing (a 32-row block
+// beside its successor), lane rolls and static unroll over the diagonals
+// have no use here and are gone; its skipped last block is kept as the
+// domain's end. Totals reduce per block and add one integer atomic each,
+// so both are deterministic.
 //
 // Built without --use_fast_math: the tests compare floats that the plan
 // computed, or take their exact differences, which flushing subnormals
@@ -146,43 +160,139 @@ slab_masks_kernel(const float* __restrict__ s, const int* __restrict__ starts,
   }
 }
 
-constexpr int DIAG_THREADS = 256;
+constexpr int DIAG_THREADS = 128;
+constexpr int DIAG_K = 8;                          // positions a thread
+constexpr int DIAG_SPAN = DIAG_THREADS * DIAG_K;   // positions a block
+constexpr int DIAG_CHANNELS = 7;   // staged: the six bounds, the slab key
 
-// Block x takes positions p0 = x * DIAG_THREADS .. p0 + DIAG_THREADS - 1.
-// Partner p + d (1 <= d <= d_max) of thread t sits at column t + d - 1 of
-// the staged [6][DIAG_THREADS + d_max] boxes (positions p0 + 1 on).
+// The shared index of staged column c: one pad word every DIAG_K columns,
+// so that a warp's reads at columns DIAG_K * lane + j fall in 32 banks.
+__device__ __forceinline__ int diag_col(int c) { return c + c / DIAG_K; }
+
+// Words a staged channel takes: DIAG_SPAN + d_max + 1 columns, padded.
+__host__ __device__ inline int diag_stride(int d_max) {
+  const int w = DIAG_SPAN + d_max + 1;
+  return w + w / DIAG_K;
+}
+
+// A thread's DIAG_K boxes, component-major.
+struct DiagBoxes {
+  float lo[3][DIAG_K], hi[3][DIAG_K];
+};
+
+// Sign bit set iff box k and (lo, hi) overlap on axis x: the column
+// kernels' test (column_tile.cuh), on bounds free of -0.
+__device__ __forceinline__ uint32_t diag_axis(const DiagBoxes& a, int k, int x,
+                                              float lo, float hi) {
+  return column::less(lo, a.hi[x][k]) & column::less(a.lo[x][k], hi);
+}
+
+// The number of boxes k in [k0, k1) that meet staged column c (k1 and,
+// but for the head, k0 compile-time). Two exact votes skip the column
+// for the warp: its zlo against zmax, the highest zhi of the thread's
+// boxes (the stream is in z order within a slab, so a column a few
+// positions on meets none), then y against each box (uniform spheres
+// seldom meet in y), before x and z.
+__device__ __forceinline__ int diag_test(const float* sb, int ws, int c,
+                                         const DiagBoxes& a, float zmax,
+                                         int k0, int k1) {
+  const int at = diag_col(c);
+  const float zlo = sb[2 * ws + at];
+  if (!__any_sync(0xffffffffu, column::less(zlo, zmax) >> 31)) return 0;
+  const float ylo = sb[ws + at], yhi = sb[4 * ws + at];
+  uint32_t y[DIAG_K], any = 0;
+#pragma unroll
+  for (int k = 0; k < DIAG_K; ++k) {
+    y[k] = k < k1 ? diag_axis(a, k, 1, ylo, yhi) : 0u;
+    any |= y[k];
+  }
+  if (!__any_sync(0xffffffffu, any >> 31)) return 0;
+  const float xlo = sb[at], xhi = sb[3 * ws + at], zhi = sb[5 * ws + at];
+  int hits = 0;
+#pragma unroll
+  for (int k = 0; k < DIAG_K; ++k) {
+    const int hit = (y[k] & diag_axis(a, k, 0, xlo, xhi) &
+                     diag_axis(a, k, 2, zlo, zhi)) >> 31;
+    hits += k >= k0 ? hit : 0;
+  }
+  return hits;
+}
+
+// Block x takes the DIAG_SPAN positions from p0 = x * DIAG_SPAN and
+// stages columns p0 .. p0 + DIAG_SPAN + d_max of channels 0-5 (+0 for -0)
+// and 7 in shared memory, four positions a load. Thread t holds the boxes
+// of positions c0 + k (c0 = t * DIAG_K, k < DIAG_K) and walks columns
+// c0 + j, j = 1 .. d_max + DIAG_K - 1, each loaded once and tested
+// against every box k with 1 <= j - k <= d_max: a head of DIAG_K - 1
+// columns, a middle where every box takes the column, a tail of
+// DIAG_K - 1.
 __global__ void __launch_bounds__(DIAG_THREADS)
 diag_count_kernel(const float* __restrict__ s, const float* __restrict__ thr,
                   int d_max, unsigned long long* __restrict__ total,
                   unsigned long long* __restrict__ flagged) {
   extern __shared__ float sb[];
-  const int w = DIAG_THREADS + d_max;
+  const int w = DIAG_SPAN + d_max + 1, ws = diag_stride(d_max);
   const int t = threadIdx.x;
-  const long long p0 = static_cast<long long>(blockIdx.x) * DIAG_THREADS;
-  for (int idx = t; idx < 6 * w; idx += DIAG_THREADS)
-    sb[idx] = stream::comp(s, p0 + 1 + idx % w, idx / w);
-
-  const long long p = p0 + t;
-  float lo[3], hi[3];
+  const long long p0 = static_cast<long long>(blockIdx.x) * DIAG_SPAN;
+  // Positions p0 + c .. p0 + c + 3 (c a multiple of 4) lie in one row,
+  // and in one group of DIAG_K staged columns: one 16-byte load a
+  // channel, the seven in flight together.
+  for (int c = 4 * t; c < w; c += 4 * DIAG_THREADS) {
+    const long long p = p0 + c;
+    const float* row = s + (p / LANE) * (8 * LANE) + p % LANE;
+    float4 v[DIAG_CHANNELS];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    lo[c] = stream::comp(s, p, c);
-    hi[c] = stream::comp(s, p, c + 3);
+    for (int ch = 0; ch < DIAG_CHANNELS; ++ch)
+      v[ch] = *reinterpret_cast<const float4*>(row + (ch < 6 ? ch : 7) * LANE);
+    float* at = sb + diag_col(c);
+#pragma unroll
+    for (int ch = 0; ch < DIAG_CHANNELS; ++ch) {
+      const float e[4] = {v[ch].x, v[ch].y, v[ch].z, v[ch].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < w) at[ch * ws + u] = ch < 6 ? e[u] + 0.0f : e[u];
+    }
   }
   __syncthreads();
 
+  const int c0 = t * DIAG_K;
+  DiagBoxes a;
+#pragma unroll
+  for (int k = 0; k < DIAG_K; ++k) {
+    const int at = diag_col(c0 + k);
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      a.lo[x][k] = sb[x * ws + at];
+      a.hi[x][k] = sb[(x + 3) * ws + at];
+    }
+  }
+
+  float zmax = a.hi[2][0];
+#pragma unroll
+  for (int k = 1; k < DIAG_K; ++k) zmax = fmaxf(zmax, a.hi[2][k]);
+
   int hits = 0;
-  for (int col = t; col < t + d_max; ++col)
-    hits += (hi[0] > sb[col]) & (lo[0] < sb[3 * w + col]) &
-            (hi[1] > sb[w + col]) & (lo[1] < sb[4 * w + col]) &
-            (hi[2] > sb[2 * w + col]) & (lo[2] < sb[5 * w + col]);
+#pragma unroll
+  for (int j = 1; j < DIAG_K; ++j)   // head: boxes j - d_max <= k < j
+    hits += diag_test(sb, ws, c0 + j, a, zmax, j - d_max, j);
+  for (int j = DIAG_K; j <= d_max; ++j)   // middle: every box
+    hits += diag_test(sb, ws, c0 + j, a, zmax, 0, DIAG_K);
+#pragma unroll
+  for (int m = 1; m < DIAG_K; ++m)   // tail: j = d_max + m, boxes k >= m
+    if (d_max + m >= DIAG_K)          // else the head took it
+      hits += diag_test(sb, ws, c0 + d_max + m, a, zmax, m, DIAG_K);
+
   // Missed-pair detector at distance d_max + 1: same slab (channel 7, a
   // float compare as in the TPU kernel) and z within thr. Pads are +inf
   // in every channel, so "inf < inf + thr" never flags them.
-  const long long q = p + d_max + 1;
-  const float zhi_thr = hi[2] + thr[0];
-  int flag = (stream::comp(s, q, 7) == stream::comp(s, p, 7)) &
-             (stream::comp(s, q, 2) < zhi_thr);
+  const float th = thr[0];
+  int flag = 0;
+#pragma unroll
+  for (int k = 0; k < DIAG_K; ++k) {
+    const int q = diag_col(c0 + k + d_max + 1);
+    flag += (sb[6 * ws + q] == sb[6 * ws + diag_col(c0 + k)]) &
+            (sb[2 * ws + q] < a.hi[2][k] + th);
+  }
 
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -241,22 +351,24 @@ extern "C" int slab_masks_launch(const float* s, const int* starts,
 }
 
 // ``positions``: the count's domain, (Rp - DIAG_B) * 128 sorted positions,
-// a multiple of DIAG_THREADS; the stream holds at least positions +
-// d_max + 1 of them. out[0] is the pair count, out[1] the detector's.
+// a multiple of DIAG_SPAN; the stream holds at least positions + d_max + 1
+// of them. out[0] is the pair count, out[1] the detector's.
 extern "C" int diag_count_launch(const float* s, const float* thr,
                                  long long positions, int d_max,
                                  unsigned long long* out, void* stream) {
-  if (positions % DIAG_THREADS || d_max < 0)
+  // The staging's 16-byte loads need a 16-byte aligned stream.
+  if (positions % DIAG_SPAN || d_max < 0 ||
+      (reinterpret_cast<uintptr_t>(s) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   if (positions > 0) {
-    const size_t smem = sizeof(float) * 6 * (DIAG_THREADS + d_max);
+    const size_t smem = sizeof(float) * DIAG_CHANNELS * diag_stride(d_max);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           diag_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    diag_count_kernel<<<positions / DIAG_THREADS, DIAG_THREADS, smem,
+    diag_count_kernel<<<positions / DIAG_SPAN, DIAG_THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         s, thr, d_max, out, out + 1);
   }

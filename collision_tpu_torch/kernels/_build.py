@@ -66,8 +66,9 @@ _ARGTYPES = {
     "row_popcount_launch": [_P, _L, _P, _P],
     # bins, gd, M, tile counts, tile_pad, total, cuda stream
     "grid_count_launch": [_P, _I, _I, _P, _I, _P, _P],
-    # bins, gd, M, tile_pad, tiles, bases, h, capacity, pairs, cuda stream
-    "grid_emit_launch": [_P, _I, _I, _I, _P, _P, _L, _L, _P, _P],
+    # bins, gd, M, tile_pad, tiles, bases, h, hit count, capacity, pairs,
+    # cuda stream
+    "grid_emit_launch": [_P, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P],
 }
 
 

@@ -18,7 +18,7 @@ of the grid stencil: cell column ``col = x*gd + y``, cell ``z``, offset
 On a CUDA tensor the wrappers launch the kernels of ``csrc/grid.cu``; on
 a CPU tensor they run the plain PyTorch versions beside them. The TPU's
 batches of 8 tiles per grid step (``_BATCH``) and the lane-oriented twin
-of the bins are not ported: a block takes one tile and reads the rows as
+of the bins are not ported: a warp takes one tile and reads the rows as
 they lie. Pairs are uint32 ids held in int64 [capacity, 2]; unused slots
 hold 0xFFFFFFFF.
 """
@@ -87,13 +87,16 @@ def halo_tile_counts(bins, grid_dim, cell_capacity):
     return tc
 
 
-def emit_pairs_plain(bins, tiles, bases, grid_dim, cell_capacity, capacity):
+def emit_pairs_plain(bins, tiles, bases, grid_dim, cell_capacity, capacity,
+                     *, n_hit=None):
     """Plain PyTorch version of :func:`emit_pairs`."""
     dev = bins.device
     gd, M = grid_dim, cell_capacity
     pad = tile_pad(gd)
     pairs = torch.full((capacity, 2), NO_PAIR, dtype=torch.int64, device=dev)
     keep = bases < capacity
+    if n_hit is not None:
+        keep &= torch.arange(bases.numel(), device=dev) < n_hit
     tiles, bases = tiles[keep].long(), bases[keep].long()
     off = torch.tensor(TILE_OFFSETS, device=dev)
     tri = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
@@ -118,33 +121,56 @@ def emit_pairs_plain(bins, tiles, bases, grid_dim, cell_capacity, capacity):
     return pairs
 
 
-def emit_pairs(bins, tiles, bases, grid_dim, cell_capacity, capacity):
+def emit_pairs(bins, tiles, bases, grid_dim, cell_capacity, capacity, *,
+               n_hit=None):
     """Write each hit tile's pairs at its prescanned base offset.
 
     Args:
       tiles: int[h] flat hit-tile ids (col*tile_pad + z*14 + o).
       bases: int[h] first pair slot of each tile; an entry with a base at
         or past ``capacity`` is skipped.
+      n_hit: internal, :func:`grid_fill`'s: an int64 scalar tensor on the
+        bins' device, the number of leading entries that are the hit tiles
+        in ascending order with bases scanned from every tile's count (the
+        entries from it on are skipped). The kernel then stops each tile at
+        the next entry's base, and sizes nothing on the host. The buffer
+        is the same as without it.
 
     Returns int64[capacity, 2] uint32 ids; untouched slots hold
     0xFFFFFFFF. Slots are int64: no limit at 2^31.
     """
     if not bins.is_cuda:
         return emit_pairs_plain(bins, tiles, bases, grid_dim, cell_capacity,
-                                capacity)
+                                capacity, n_hit=n_hit)
     p = _bins_ptr(bins, grid_dim, cell_capacity)
     pairs = torch.full((capacity, 2), -1, dtype=torch.int32,
                        device=bins.device)
     tiles, bases = tiles.long().contiguous(), bases.long().contiguous()
     if tiles.shape != bases.shape:
         raise ValueError("tiles and bases must have one shape")
+    hit_ptr = None
+    if n_hit is not None:
+        hit_ptr = _build.require(n_hit.reshape(()), torch.int64, "n_hit")
     if bases.numel() and capacity:
         _build.launch("grid_emit_launch", p, grid_dim, cell_capacity,
                       tile_pad(grid_dim), tiles.data_ptr(),
-                      bases.data_ptr(), bases.numel(), capacity,
+                      bases.data_ptr(), bases.numel(), hit_ptr, capacity,
                       pairs.data_ptr())
         _build.LAUNCHES["grid_emit"] += 1
     return pairs.view(torch.uint32).long()
+
+
+def fill_entries(flat, capacity):
+    """The emission's entries in :func:`grid_fill`: (tiles, bases, n_hit)
+    from the flat tile counts ``flat``, every entry of the compacted hit
+    list (min(capacity, tiles) of them, at least one; NO_INDEX tails as
+    tile 0 at base ``capacity``) and the hit count, on the device."""
+    bases = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    hit_idx, n_hit = compact.compact_mask(
+        flat > 0, max(min(capacity, flat.numel()), 1))
+    valid = hit_idx != compact.NO_INDEX
+    tiles = torch.where(valid, hit_idx, 0)
+    return tiles, torch.where(valid, bases[tiles], capacity), n_hit
 
 
 def grid_fill(bins, grid_dim, cell_capacity, capacity):
@@ -153,17 +179,12 @@ def grid_fill(bins, grid_dim, cell_capacity, capacity):
     Pair slots come from an exclusive scan of the exact per-tile counts in
     ascending tile order: deterministic, gap-free, the first ``capacity``
     pairs written and the true total returned (the reference's overflow
-    contract, collision.cl:203-207). No host sync.
+    contract, collision.cl:203-207). No host sync: the emission reads the
+    hit count on the device.
     """
-    tc = halo_tile_counts(bins, grid_dim, cell_capacity)
-    flat = tc.reshape(-1)
+    flat = halo_tile_counts(bins, grid_dim, cell_capacity).reshape(-1)
     total = flat.sum(dtype=torch.int64)
-    bases = torch.cumsum(flat, 0, dtype=torch.int64) - flat
-    hit_idx, _ = compact.compact_mask(
-        flat > 0, max(min(capacity, flat.numel()), 1))
-    valid = hit_idx != compact.NO_INDEX
-    tiles = torch.where(valid, hit_idx, 0)
-    tile_bases = torch.where(valid, bases[tiles], capacity)
-    pairs = emit_pairs(bins, tiles, tile_bases, grid_dim, cell_capacity,
-                       capacity)
+    tiles, bases, n_hit = fill_entries(flat, capacity)
+    pairs = emit_pairs(bins, tiles, bases, grid_dim, cell_capacity,
+                       capacity, n_hit=n_hit)
     return pairs, total

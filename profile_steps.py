@@ -56,9 +56,12 @@ run-expansion fill). Prints one JSON line per reading:
   masks kernels at one row on the 1M slab plan (the count also as
   ``slab_count_diag``'s cross-only pass: offset x+1, j > i + 48) and at
   two rows on the giants route's parked slab plan, windows clamped to
-  the rows as the dual dispatch and the slab fill clamp them, median of
-  15 samples of 20 calls in a row: the launches queue, so the time is
-  the kernel's device time.
+  the rows as the dual dispatch and the slab fill clamp them, the grid
+  emission kernel on the 1M grid fill's inputs at capacity 16384 (its
+  own entries with the hit count on the card, and the hit tiles alone)
+  and the diagonal count kernel at d_max 48 on the 1M slab plan, median
+  of 15 samples of 20 calls in a row: the launches queue, so the time
+  is the kernel's device time.
 
 Exits non-zero when there is no CUDA device or the divisor check fails.
 """
@@ -220,19 +223,63 @@ def slab_launcher(plan, rpw, masks=False, first_off=0, dmin=0):
     from collision_tpu_torch.kernels import _build, sweep
 
     wcap = torch.clamp_max(plan.wcap, rpw * 128)
-    tables = (plan.stream.data_ptr(), plan.starts.data_ptr(),
-              plan.w0.data_ptr(), wcap.data_ptr(), plan.gx, plan.mc, rpw)
+    kg, ng = sweep.mask_groups(plan.mc, rpw)
     if masks:
-        kg, ng = sweep.mask_groups(plan.mc, rpw)
         out = torch.empty((plan.gx * ng, kg * 2 * rpw * 2, 128),
                           dtype=torch.int32, device=plan.stream.device)
-        args = ("slab_masks_launch", *tables, kg, ng, out.data_ptr())
+        tail = ("slab_masks_launch", kg, ng)
     else:
         out = torch.zeros((1,), dtype=torch.int64, device=plan.stream.device)
-        args = ("slab_count_launch", *tables, first_off, dmin, out.data_ptr())
+        tail = ("slab_count_launch", first_off, dmin)
 
     def launch():
-        _build.launch(*args)
+        # The closure holds the tensors, so their memory stays theirs.
+        _build.launch(tail[0], plan.stream.data_ptr(), plan.starts.data_ptr(),
+                      plan.w0.data_ptr(), wcap.data_ptr(), plan.gx, plan.mc,
+                      rpw, *tail[1:], out.data_ptr())
+    return launch
+
+
+def grid_emit_launcher(bins, gd, mc, capacity, fill):
+    """A raw launch of the grid emission kernel into one buffer on the
+    grid fill's inputs at ``capacity``: its own entries (every entry of
+    the compacted hit list) and hit count when ``fill``, else the hit
+    tiles alone."""
+    import torch
+    from collision_tpu_torch.kernels import _build, emit
+
+    flat = emit.halo_tile_counts(bins, gd, mc).reshape(-1)
+    n_hit = None
+    if fill:
+        tiles, bases, n_hit = emit.fill_entries(flat, capacity)
+    else:
+        tiles = torch.nonzero(flat).flatten()
+        bases = (torch.cumsum(flat, 0) - flat)[tiles]
+    pairs = torch.empty((capacity, 2), dtype=torch.int32, device=bins.device)
+
+    def launch():
+        # The closure holds the tensors, so their memory stays theirs.
+        _build.launch("grid_emit_launch", bins.data_ptr(), gd, mc,
+                      emit.tile_pad(gd), tiles.data_ptr(), bases.data_ptr(),
+                      tiles.numel(), None if n_hit is None
+                      else n_hit.data_ptr(), capacity, pairs.data_ptr())
+    return launch
+
+
+def diag_launcher(plan, d_max):
+    """A raw launch of the diagonal count kernel on a slab plan, into one
+    pair of counts allocated once."""
+    import torch
+    from collision_tpu_torch.kernels import _build, slab_sweep
+
+    out = torch.zeros((2,), dtype=torch.int64, device=plan.stream.device)
+    positions = slab_sweep._diag_positions(plan.stream, d_max)
+
+    def launch():
+        # The closure holds the tensors, so their memory stays theirs.
+        _build.launch("diag_count_launch", plan.stream.data_ptr(),
+                      plan.diag_thr.data_ptr(), positions, d_max,
+                      out.data_ptr())
     return launch
 
 
@@ -452,7 +499,11 @@ def main():
                                              dmin=DIAG_D_MAX),
         "slab_masks_1m": slab_launcher(plan, 1, masks=True),
         "slab_count_giants": slab_launcher(gi_plan, 2),
-        "slab_masks_giants": slab_launcher(gi_plan, 2, masks=True)}
+        "slab_masks_giants": slab_launcher(gi_plan, 2, masks=True),
+        "grid_emit_fill_1m": grid_emit_launcher(gbins, *gcfg, CAPACITY, True),
+        "grid_emit_hits_1m": grid_emit_launcher(gbins, *gcfg, CAPACITY,
+                                                False),
+        "diag_count_1m": diag_launcher(plan, DIAG_D_MAX)}
     for name, p in (("1m", cplan), ("262144", aplan), ("powerlaw", pl_plan)):
         for rolled, kind in ((True, "rolled"), (False, "aligned")):
             launches[f"column_count_{kind}_{name}"] = column_count_launcher(

@@ -8,6 +8,9 @@ card. Imports no JAX, so it runs on a machine that has none:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -668,6 +671,48 @@ def test_grid_kernels_match_plain(cuda, scene):
         assert _build.LAUNCHES[name] == before[name] + k, name
 
 
+@pytest.mark.parametrize("scene", GRID_SCENES + [("dense_grid", None, 8, 192)])
+def test_grid_emit_kernel_matches_plain(cuda, scene):
+    # The emission walks each tile in one pass (a warp a tile) and, on the
+    # fill's entries, stops at the next entry's base: bit for bit against
+    # the plain version on the cull's edge scenes, ~300 rows a cell (three
+    # 128-row chunks), the dense oracle scene's grid (up to ~160 rows a
+    # cell: two chunks), capacities inside a tile, at one slot and at tile
+    # boundaries, fed the hit tiles alone and the fill's own entries.
+    n, rscale, gd, mc = scene
+    if n == "dense_grid":
+        rng = np.random.RandomState(4)
+        coords = torch.from_numpy(rng.random((65536, 3)).astype("float32"))
+        radii = torch.from_numpy(rng.uniform(0, 0.06, 65536).astype("float32"))
+    elif isinstance(n, str):
+        coords, radii, gd, mc = CULL_GRID_SCENES[n]()
+        coords, radii = torch.from_numpy(coords), torch.from_numpy(radii)
+    else:
+        coords, radii = _grid_scene(n, rscale)
+    bins, ok, _ = grid.build_grid(coords.to(cuda), radii.to(cuda), gd, mc)
+    assert bool(ok)
+    flat = emit.halo_tile_counts(bins, gd, mc).reshape(-1)
+    total = int(flat.sum())
+    tiles = torch.nonzero(flat).flatten()
+    bases = (torch.cumsum(flat, 0) - flat)[tiles]
+    first = int(torch.nonzero(flat[tiles] >= 2)[0])
+    mid = len(tiles) // 2
+    capacities = (total + 100, int(bases[first]) + 1, 1, int(bases[mid]),
+                  int(bases[mid]) + int(flat[tiles[mid]]), total)
+    before = _build.LAUNCHES["grid_emit"]
+    for capacity in capacities:
+        args = (bins, tiles, bases, gd, mc, capacity)
+        want = emit.emit_pairs_plain(*args)
+        assert torch.equal(emit.emit_pairs(*args), want)
+        fill = emit.fill_entries(flat, capacity)
+        fargs = (bins, *fill[:2], gd, mc, capacity)
+        assert torch.equal(emit.emit_pairs_plain(*fargs, n_hit=fill[2]), want)
+        assert torch.equal(emit.emit_pairs(*fargs, n_hit=fill[2]), want)
+        assert torch.equal(emit.emit_pairs(*fargs), want)
+    assert bool((want[:total] != 0xFFFFFFFF).all())
+    assert _build.LAUNCHES["grid_emit"] == before + 3 * len(capacities)
+
+
 @pytest.mark.parametrize("knobs", [{}, {"grid_dim": 5, "cell_capacity": 64},
                                    {"cell_capacity": 16}])
 def test_grid_collide_on_card_matches_cpu(cuda, knobs):
@@ -725,6 +770,37 @@ def test_diag_kernel_matches_plain(cuda, kind):
     assert _build.LAUNCHES["diag_count"] == before + len(d_maxes)
     with pytest.raises(ValueError, match="d_max"):
         slab_sweep.diag_count(plan.stream, plan.diag_thr, 32 * 128)
+
+
+def _diag_k():
+    """Positions a thread of the diagonal kernel takes (its DIAG_K)."""
+    src = Path(_build.__file__).resolve().parent.parent / "csrc" / "slab_sweep.cu"
+    return int(re.search(r"constexpr int DIAG_K = (\d+);", src.read_text())[1])
+
+
+@pytest.mark.parametrize("kind", ["uniform", "same_z", "zeros_and_nans"])
+def test_diag_kernel_every_span_matches_plain(cuda, kind):
+    # Each thread holds DIAG_K positions and walks a head, a middle and a
+    # tail of partner columns: spans on both sides of DIAG_K, the
+    # default 48, and 3000 (staging past 48 KB of shared memory); the
+    # detector on the same-z scene; signed zeros and NaN bounds (the
+    # sign-bit test) on the uniform scene's stream.
+    coords, radii = _diag_scene("same_z" if kind == "same_z" else "uniform")
+    plan = slabs.plan_slabs(coords.to(cuda), radii.to(cuda),
+                            *slabs.default_slab_config(coords.shape[0]))
+    if kind == "zeros_and_nans":
+        plan = _zeros_and_nans(plan, coords.shape[0])
+    k = _diag_k()
+    d_maxes = (0, 1, k - 1, k, k + 1, 16, 48, 130, 3000)
+    before = _build.LAUNCHES["diag_count"]
+    found = np.zeros(2, np.int64)
+    for d_max in d_maxes:
+        got = slab_sweep.diag_count(plan.stream, plan.diag_thr, d_max)
+        want = slab_sweep.diag_count_plain(plan.stream, plan.diag_thr, d_max)
+        assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1])), d_max
+        found += (int(got[0]), int(got[1]))
+    assert (found > 0).all()   # pairs and flags were there to find
+    assert _build.LAUNCHES["diag_count"] == before + len(d_maxes)
 
 
 @pytest.mark.parametrize("scene,d_max", [((317, 1 / np.sqrt(317), 23), 48),
