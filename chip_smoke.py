@@ -1349,12 +1349,12 @@ def counted(fn):
     """(result of ``fn()``, launches per kernel during it): the counters
     are reset just before and read after the card has finished."""
     import torch
-    from collision_tpu_torch.kernels import _build
+    from collision_tpu_torch import tracing
 
-    _build.reset_launches()
+    tracing.reset()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(_build.LAUNCHES)
+    return out, dict(tracing.LAUNCHES)
 
 
 def main():

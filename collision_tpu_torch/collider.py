@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .columns import CHUNK, _scalar, default_column_config, plan_columns
 from .fill import candidate_count, mask_fill, run_fill, slab_mask_fill
 from .grid import build_grid, tile_counts_plain
@@ -102,6 +103,7 @@ class CollisionResult(NamedTuple):
         """True when count exceeded the pair-buffer capacity."""
         if self.pairs is None:
             return False
+        tracing.host_sync("collider.overflowed")
         return bool(self.count > self.pairs.shape[0])
 
 
@@ -131,6 +133,7 @@ def default_cand_capacity(n, capacity):
     return max(1 << 17, 8 * capacity, 32 * n)
 
 
+@tracing.spanned("ct.collide")
 def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
             grid_dim=None, cell_capacity=None, gxy=None, col_capacity=None,
             slab_rows=None, rpw=DEFAULT_RPW, cand_capacity=None, gx=None,
@@ -247,6 +250,7 @@ def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
         ok = torch.ones((), dtype=torch.bool, device=coords.device)
         return CollisionResult(zero, pairs, lo_scene, hi_scene, ok)
     if method == "grid":
+        tracing.ATTEMPTS["grid"] += 1
         auto_gd, auto_mc = default_grid_config(n)
         return _grid_collide(
             coords, radii, capacity, auto_gd if grid_dim is None else grid_dim,
@@ -256,12 +260,14 @@ def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
     if f64 or (method == "hetero" and n <= CHUNK):
         # The run-expansion fill: column-keyed, at the column knob where
         # the column method was asked for, else at the default grid.
+        tracing.ATTEMPTS["runfill"] += 1
         pairs, total, ok = run_fill(
             coords, radii, capacity,
             gxy if method == "column" and gxy is not None else auto[0],
             cand_capacity)
         return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
     if method == "slab":
+        tracing.ATTEMPTS["slab"] += 1
         s_gx, s_cap, s_rows = default_slab_config(n, gx=gx)
         return _slab_collide(coords, radii, capacity, s_gx, s_cap, s_rows,
                              lo_scene, hi_scene)
@@ -269,6 +275,7 @@ def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
         return _hetero_collide(coords, radii, capacity, nb, rpw, gxy,
                                col_capacity, slab_rows, hetero_engine, gx,
                                lo_scene, hi_scene)
+    tracing.ATTEMPTS["column"] += 1
     return _column_collide(
         coords, radii, capacity, auto[0] if gxy is None else gxy,
         auto[1] if col_capacity is None else col_capacity,
@@ -282,7 +289,8 @@ def _column_collide(coords, radii, capacity, gxy, col_capacity, slab_rows,
     kernel plus the emission."""
     if capacity == 0:
         plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
-        count, no_wrap = sweep_count_guarded(plan, rpw=rpw, rolled=True)
+        with tracing.span("ct.column.sweep"):
+            count, no_wrap = sweep_count_guarded(plan, rpw=rpw, rolled=True)
         ok = plan.ok & (plan.rows_rolled <= rpw) & no_wrap
         return CollisionResult(count, None, lo_scene, hi_scene, ok)
     ida, idb, total, ok = mask_fill(
@@ -329,17 +337,18 @@ def _grid_collide(coords, radii, capacity, grid_dim, cell_capacity,
     count otherwise, as the JAX engine routes; on the card both launch the
     one-cell-per-block count kernel."""
     bins, ok, _ = build_grid(coords, radii, grid_dim, cell_capacity)
-    if capacity == 0 and bins.dtype == torch.float64:
-        # The count kernel reads float32 bins; float64 counts by the plain
-        # stencil, as the JAX package's float64 grid count is its XLA one.
-        total = tile_counts_plain(bins, grid_dim, cell_capacity).sum(
-            dtype=torch.int64)
-        return CollisionResult(total, None, lo_scene, hi_scene, ok)
     if capacity == 0:
-        if grid_dim % 2 == 0:
-            total = batched.batched_count(bins, grid_dim, cell_capacity)
-        else:
-            _, total = halo.halo_pairs(bins, grid_dim, cell_capacity, 0)
+        with tracing.span("ct.grid.counts"):
+            if bins.dtype == torch.float64:
+                # The count kernel reads float32 bins; float64 counts by
+                # the plain stencil, as the JAX package's float64 grid
+                # count is its XLA one.
+                total = tile_counts_plain(bins, grid_dim, cell_capacity) \
+                    .sum(dtype=torch.int64)
+            elif grid_dim % 2 == 0:
+                total = batched.batched_count(bins, grid_dim, cell_capacity)
+            else:
+                _, total = halo.halo_pairs(bins, grid_dim, cell_capacity, 0)
         return CollisionResult(total, None, lo_scene, hi_scene, ok)
     pairs, total = emit.grid_fill(bins, grid_dim, cell_capacity, capacity)
     return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
@@ -443,7 +452,9 @@ def _route_hetero_eager(coords, radii, nb=None):
     n = coords.shape[0]
     if n < HETERO_AUTO_MIN or n <= CHUNK:
         return None
-    s = _hetero_stats(coords, radii, _effective_nb(n, nb)).cpu().tolist()
+    with tracing.span("ct.probe"):
+        tracing.host_sync("collider._route_hetero_eager")
+        s = _hetero_stats(coords, radii, _effective_nb(n, nb)).cpu().tolist()
     r_max, r_small, r_mean_s, r_mean_all = s[:4]
     ext = s[4:7]
     if _predicted_slab_slack(n, r_max, r_mean_all, ext) <= SLAB_SLACK_MAX:
@@ -465,6 +476,7 @@ def collide_exact(coords, radii, capacity, method="auto"):
                  method=method, device=device)
     coords, radii = c._inputs(coords, radii)
     result = collide(coords, radii, capacity, method=method)
+    tracing.host_sync("collider.collide_exact")
     if not bool(result.ok):
         result = c._retry_exact(coords, radii, int(capacity))
     return result
@@ -564,9 +576,16 @@ class Collider:
 
     def _inputs(self, coords, radii):
         dtype = getattr(torch, self.coord_dtype.name)
+        for a in (coords, radii):
+            # A copy from the host, or across device types, waits for the
+            # device.
+            if not (isinstance(a, torch.Tensor)
+                    and a.device.type == self.device.type):
+                tracing.host_sync("collider._inputs")
         return (torch.as_tensor(coords, dtype=dtype, device=self.device),
                 torch.as_tensor(radii, dtype=dtype, device=self.device))
 
+    @tracing.spanned("ct.get_collisions")
     def get_collisions(self, coords, radii, n_collisions, collisions=True):
         """One frame, as the reference's get_collisions (collision.py:
         130-198).
@@ -591,12 +610,14 @@ class Collider:
                 f"{tuple(coords.shape)}")
         capacity = int(n_collisions)
         result = collide(coords, radii, capacity, method=self.method)
+        tracing.host_sync("collider.get_collisions")
         if not bool(result.ok):
             result = self._retry_exact(coords, radii, capacity)
         if collisions is None or n_collisions == 0:
             return result.count
         return result.count, result.pairs
 
+    @tracing.spanned("ct.retry")
     def _retry_exact(self, coords, radii, capacity):
         """Retry with exact knobs from the engines' statistics.
 
@@ -608,7 +629,9 @@ class Collider:
         attempt, whose ``ok`` is False."""
         if self.coord_dtype != np.float32:
             return self._retry_candidates(coords, radii, capacity)
+        site = "collider._retry_exact"
         if self.size > CHUNK:
+            tracing.host_sync(site)
             s = _hetero_stats(coords, radii, default_nb(self.size)).tolist()
             r_max, r_small, r_mean_s, r_mean_all = s[:4]
             gain = (r_mean_all + r_max) / max(r_mean_s + r_small, 1e-30)
@@ -621,11 +644,13 @@ class Collider:
         # The column plan reports the exact column occupancy, slab height
         # and window rows it needs.
         gxy, col_cap, slab_rows = default_column_config(self.size)
+        tracing.host_sync(site, 2)
         ext_xy = float((coords.amax(0)[:2] - coords.amin(0)[:2]).max())
         r_max_all = float(radii.max())
         last = None
         for _ in range(6):
             plan = plan_columns(coords, radii, gxy, col_cap, slab_rows)
+            tracing.host_sync(site, 3)
             need_col = round_up(int(plan.max_col), CHUNK)
             need_slab = int(plan.max_slab_rows) + 2
             need_rpw = int(plan.rows_needed)
@@ -643,6 +668,7 @@ class Collider:
                 res = last = collide(
                     coords, radii, capacity, method="column", gxy=gxy,
                     col_capacity=col_cap, slab_rows=slab_rows, rpw=rpw)
+                tracing.host_sync(site)
                 if bool(res.ok):
                     return res
             # Stats taken under too-small capacities: adopt the exact
@@ -662,11 +688,13 @@ class Collider:
                        col_capacity=col_cap, slab_rows=slab_rows,
                        rpw=RPW_LADDER[-1])
 
+    @tracing.spanned("ct.retry")
     def _retry_candidates(self, coords, radii, capacity):
         """The run-expansion retry: one column step at the scene's exact
         candidate need plus 2% and 1024 (at most ``CAND_MAX``), then the
         BVH, then the honest ``ok=False`` result."""
         gxy = default_column_config(self.size)[0]
+        tracing.host_sync("collider._retry_candidates", 2)
         needed = int(candidate_count(coords, radii, gxy))
         cand = min(int(needed * 1.02) + 1024, self.CAND_MAX)
         res = collide(coords, radii, capacity, method="column",
@@ -685,7 +713,9 @@ class Collider:
         small."""
         if self.size <= 2 * CHUNK:
             return None
+        site = "collider._hetero_exact"
         nb0 = default_nb(self.size)
+        tracing.host_sync(site)
         stats = _hetero_stats(coords, radii, nb0).tolist()
         route = _hetero_route_knobs(self.size, nb0, stats[1], stats[2],
                                     stats[4:7])
@@ -693,11 +723,16 @@ class Collider:
             gx = route[1]
             lo_s, hi_s = scene_bounds(coords)
             for _ in range(3):
-                pairs, total, ok, (_, other_ok) = hetero_collide(
-                    coords, radii, capacity, nb=nb0, engine="slab", gx=gx,
-                    with_flags=True)
+                # A rung of its own outside ``collide`` (it needs the
+                # flags), so it opens the span a ``collide`` rung opens.
+                with tracing.span("ct.collide"):
+                    pairs, total, ok, (_, other_ok) = hetero_collide(
+                        coords, radii, capacity, nb=nb0, engine="slab",
+                        gx=gx, with_flags=True)
+                tracing.host_sync(site)
                 if bool(ok):
                     return CollisionResult(total, pairs, lo_s, hi_s, ok)
+                tracing.host_sync(site)
                 if not bool(other_ok):
                     break
                 ngx = _quantize_gx(int(gx * 1.5) + 1)
@@ -705,6 +740,7 @@ class Collider:
                     break
                 gx = ngx
         nb_cap = max(CHUNK, (self.size // (2 * CHUNK)) * CHUNK)
+        tracing.host_sync(site)
         ext_xy = float((coords.amax(0)[:2] - coords.amin(0)[:2]).max())
         tried = set()
         for nb in (nb0, nb0 * 4, nb0 * 16):
@@ -717,13 +753,16 @@ class Collider:
                 gxy, col_cap, slab_rows = route[1:4]
             else:
                 gxy, col_cap, slab_rows = default_column_config(self.size)
+            tracing.host_sync(site)
             r_small = float(parked.max())
             need_rpw = None
             for _ in range(5):
                 plan = plan_columns(coords, parked, gxy, col_cap, slab_rows)
+                tracing.host_sync(site, 3)
                 need_col = round_up(int(plan.max_col), CHUNK)
                 need_slab = int(plan.max_slab_rows) + 2
                 need_rpw = int(plan.rows_needed)
+                tracing.host_sync(site)
                 if bool(plan.ok) and need_rpw <= RPW_RETRY_MAX:
                     break
                 if need_rpw > RPW_RETRY_MAX:
@@ -742,6 +781,7 @@ class Collider:
             res = collide(coords, radii, capacity, method="hetero", nb=nb,
                           rpw=rpw, gxy=gxy, col_capacity=col_cap,
                           slab_rows=slab_rows)
+            tracing.host_sync(site)
             if bool(res.ok):
                 return res
         return None

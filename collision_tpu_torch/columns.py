@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .ops import scene_bounds, sorted_bucket_starts
 from .utils import round_up
 
@@ -52,8 +53,10 @@ def _scalar(v, like):
 
     Divisors and dividends become tensors: torch turns ``number /
     tensor`` into ``reciprocal() * number``, which is not IEEE division
-    and disagrees with the JAX plans in the last bit.
+    and disagrees with the JAX plans in the last bit. On the card each
+    is a copy from the host that waits for the device.
     """
+    tracing.host_sync("columns._scalar")
     return torch.tensor(float(v), dtype=like.dtype, device=like.device)
 
 
@@ -90,6 +93,7 @@ def chunk_z_ranges(starts, nbuckets, mc, zlo, zhi):
     pos = g0[..., None] + torch.arange(CHUNK, device=dev)     # [nb, mc, 64]
     inwin = pos < ends[..., None]
     pos = pos.clamp(max=n - 1)
+    tracing.host_sync("columns.chunk_z_ranges")
     inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
     return (torch.where(inwin, zlo[pos], inf).amin(-1),
             torch.where(inwin, zhi[pos], -inf).amax(-1))
@@ -173,6 +177,7 @@ def _column_sort(coords, radii, gxy):
             radii.index_select(0, order), lo_s, zscale, r_max)
 
 
+@tracing.spanned("ct.column.plan")
 def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
     """Sort by (column, z) and precompute the column sweep kernels'
     inputs. ``coords`` [n, 3] and ``radii`` [n] are float32 on one

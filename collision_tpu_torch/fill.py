@@ -30,6 +30,7 @@ Two emitters, as in the JAX package (``_pick_emit``): up to
 
 import torch
 
+from . import tracing
 from .columns import (CHUNK, COLUMN_OFFSETS, LANE, _column_sort, _quantize,
                       _zbits, plan_columns)
 from .kernels import pair_emit, slab_sweep, sweep
@@ -92,6 +93,7 @@ def candidate_count(coords, radii, gxy):
                            gxy)[1].sum()
 
 
+@tracing.spanned("ct.runfill")
 def run_fill(coords, radii, capacity, gxy, cand_capacity):
     """Enumerate colliding pairs by run expansion, at input precision.
 
@@ -132,6 +134,7 @@ def run_fill(coords, radii, capacity, gxy, cand_capacity):
 
     total = torch.zeros((), dtype=torch.int64, device=dev)
     found_a, found_b, found = [], [], 0
+    tracing.host_sync("fill.run_fill")
     ncand = min(int(total_cand), cand_capacity)
     for k0 in range(0, ncand, chunk):
         k = torch.arange(k0, min(k0 + chunk, ncand), device=dev)
@@ -141,6 +144,7 @@ def run_fill(coords, radii, capacity, gxy, cand_capacity):
         m = ((hi[i] > lo[j]) & (lo[i] < hi[j])).all(1)
         total += m.sum()
         if found < capacity:
+            tracing.host_sync("fill.run_fill")
             sel = torch.nonzero(m).flatten()[:capacity - found]
             found_a.append(order[i[sel]])
             found_b.append(order[j[sel]])
@@ -193,6 +197,9 @@ def _mask_fill_emit(B, rp, starts, w0_flat, mc, ids_flat, capacity, total,
     rsel = torch.clamp_max(sorted_bucket_starts(ic_r, ordr + 1), Rw - 1)
     rows = torch.where((ordr < nkr)[:, None], row_words(B, rsel), 0)
     csum_rp = inclusive_scan(rp)
+    # Indexing by a 0-dim device tensor reads it on the host (here and
+    # at ``safe_w``).
+    tracing.host_sync("fill._mask_fill_emit", 2)
     safe_r = (nkr <= RK) | (csum_rp[rsel[RK - 1]] >= capacity)
 
     # --- level 2: compact nonzero words within kept rows ---
@@ -322,14 +329,16 @@ def column_fill_from_plan(plan, capacity, rpw):
     package's int32 guard, or when the sparse emission's row cut could
     have dropped a pair.
     """
-    B = sweep.sweep_masks(plan, rpw)
-    rp = pair_emit.row_popcounts(B)
+    with tracing.span("ct.column.sweep"):
+        B = sweep.sweep_masks(plan, rpw)
+        rp = pair_emit.row_popcounts(B)
     total = rp.sum()
     ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
-    ida, idb, trunc_safe = _pick_emit(capacity)(
-        B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
-        _sorted_ids(plan), capacity, total, noff=sweep.NOFF, rpw=rpw,
-        rolled=False)
+    with tracing.span("ct.column.emit"):
+        ida, idb, trunc_safe = _pick_emit(capacity)(
+            B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
+            _sorted_ids(plan), capacity, total, noff=sweep.NOFF, rpw=rpw,
+            rolled=False)
     return ida, idb, total, ok & trunc_safe
 
 
@@ -350,26 +359,28 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     """
     sweep_plan = plan._replace(
         wcap=torch.clamp_max(plan.wcap, dual_base * LANE))
-    B = slab_sweep.slab_sweep_masks(sweep_plan, dual_base)
-    rp = pair_emit.row_popcounts(B)
+    with tracing.span("ct.slab.sweep"):
+        B = slab_sweep.slab_sweep_masks(sweep_plan, dual_base)
+        rp = pair_emit.row_popcounts(B)
     mask_total = rp.sum()
     rida, ridb, rcount, r_ok = residual_pairs(plan, base=dual_base)
     total = mask_total + rcount
     gx_ok = plan.ok & r_ok
     no_wrap = mask_total < sweep.INT32_GUARD
-    ida, idb, trunc_safe = _pick_emit(capacity)(
-        B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
-        _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
-        rpw=dual_base, rolled=True)
+    with tracing.span("ct.slab.emit"):
+        ida, idb, trunc_safe = _pick_emit(capacity)(
+            B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
+            _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
+            rpw=dual_base, rolled=True)
 
-    # Append the residual pairs after the mask pairs.
-    q = torch.arange(capacity, device=B.device)
-    tm = torch.clamp_max(mask_total, capacity)
-    in_m = q < tm
-    qr = torch.clamp(q - tm, 0, rida.shape[0] - 1)
-    live = q < torch.clamp_max(total, capacity)
-    ida = torch.where(live, torch.where(in_m, ida, rida[qr]), NO_PAIR)
-    idb = torch.where(live, torch.where(in_m, idb, ridb[qr]), NO_PAIR)
+        # Append the residual pairs after the mask pairs.
+        q = torch.arange(capacity, device=B.device)
+        tm = torch.clamp_max(mask_total, capacity)
+        in_m = q < tm
+        qr = torch.clamp(q - tm, 0, rida.shape[0] - 1)
+        live = q < torch.clamp_max(total, capacity)
+        ida = torch.where(live, torch.where(in_m, ida, rida[qr]), NO_PAIR)
+        idb = torch.where(live, torch.where(in_m, idb, ridb[qr]), NO_PAIR)
     if split_ok:
         return ida, idb, total, gx_ok, no_wrap & trunc_safe
     return ida, idb, total, gx_ok & no_wrap & trunc_safe

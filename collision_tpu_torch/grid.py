@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .columns import _scalar
 
 #: Neighbor offsets covering each unordered cell pair once: (0,0,0) handled
@@ -58,6 +59,7 @@ def id_bits(lane):
 BUILD_METHODS = ("auto", "scatter", "compact")
 
 
+@tracing.spanned("ct.grid.bins")
 def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
     """Bin spheres into a dense padded grid.
 

@@ -24,6 +24,7 @@ violation.
 import numpy as np
 import torch
 
+from . import tracing
 from .columns import CHUNK, default_column_config, plan_columns
 from .fill import column_fill_from_plan, slab_fill_from_plan
 from .kernels import bigpass, compact
@@ -67,6 +68,7 @@ def _bigs_table(coords, radii, bidx, nb):
         c, r, bidx = c[perm], r[perm], bidx[perm]
     idf = bidx.to(torch.int32).view(torch.float32)
     live = r >= 0
+    tracing.host_sync("hetero._bigs_table")
     inf = torch.tensor(np.inf, dtype=torch.float32, device=coords.device)
     cols = [c[:, 0] - r, c[:, 1] - r, c[:, 2] - r,
             c[:, 0] + r, c[:, 1] + r, c[:, 2] + r]
@@ -85,6 +87,7 @@ def bigs_from_numpy(bigs, device):
     return tuple(torch.from_numpy(np.array(a)).to(device) for a in bigs)
 
 
+@tracing.spanned("ct.hetero.split")
 def _split(coords, radii, nb):
     """(nb, bidx, parked radii, bigs table) of an n-sphere scene for a
     requested ``nb`` (None: :func:`default_nb`)."""
@@ -119,33 +122,39 @@ def hetero_collide(coords, radii, capacity, nb=None, gxy=None,
     and the parts it cannot. Ids are uint32 values in int64; unused slots
     hold 0xFFFFFFFF.
     """
+    if engine not in ("slab", "column"):
+        raise ValueError(f"Unknown hetero engine: {engine}")
+    if with_flags and engine != "slab":
+        raise ValueError("with_flags requires engine='slab'")
     nb, bidx, parked, bigs = _split(coords, radii, nb)
+    # Counted here, not in ``collide``: the retry ladder also runs the
+    # engine directly.
+    tracing.ATTEMPTS["hetero"] += 1
     if engine == "slab":
         return _hetero_slab(coords, radii, parked, bigs, bidx, nb, capacity,
                             gx, col_capacity, slab_rows, with_flags)
-    if engine != "column":
-        raise ValueError(f"Unknown hetero engine: {engine}")
-    if with_flags:
-        raise ValueError("with_flags requires engine='slab'")
     n = coords.shape[0]
     d_gxy, d_cc, d_sr = default_column_config(n)
     plan = plan_columns(coords, parked, d_gxy if gxy is None else gxy,
                         d_cc if col_capacity is None else col_capacity,
                         d_sr if slab_rows is None else slab_rows)
-    mbb, tot_bb = _bb_mask(coords, radii, bidx, nb)
+    with tracing.span("ct.hetero.big"):
+        mbb, tot_bb = _bb_mask(coords, radii, bidx, nb)
     if capacity == 0:
         # The dual count's sweep runs one row short of the fill's rung;
         # the residual jobs count the rest.
         base = max(1, min(int(rpw) - 1, 4)) if rpw > 1 else 1
         cnt_s, ok_s = sweep_count_dual(plan, base=base)
-        tot_bs, ovf_bs = bigpass.big_count_only(bigs, plan.stream)
+        with tracing.span("ct.hetero.big"):
+            tot_bs, ovf_bs = bigpass.big_count_only(bigs, plan.stream)
         return None, cnt_s + tot_bs + tot_bb, ok_s & ovf_bs
     sa, sb, tot_s, ok_s = column_fill_from_plan(plan, capacity, rpw)
-    bsa, bsb, tot_bs, ovf_bs = bigpass.big_pairs(bigs, plan.stream,
-                                                   capacity)
-    bba, bbb, bb_cap = _bb_extract(mbb, bidx, nb, capacity)
-    pairs, total = _assemble(sa, sb, tot_s, bsa, bsb, tot_bs, bba, bbb,
-                             bb_cap, tot_bb, capacity)
+    with tracing.span("ct.hetero.big"):
+        bsa, bsb, tot_bs, ovf_bs = bigpass.big_pairs(bigs, plan.stream,
+                                                       capacity)
+        bba, bbb, bb_cap = _bb_extract(mbb, bidx, nb, capacity)
+        pairs, total = _assemble(sa, sb, tot_s, bsa, bsb, tot_bs, bba, bbb,
+                                 bb_cap, tot_bb, capacity)
     return pairs, total, ok_s & ovf_bs
 
 
@@ -205,20 +214,23 @@ def _hetero_slab(coords, radii, parked, bigs, bidx, nb, capacity, gx,
     plan = plan_slabs(coords, parked, d_gx if gx is None else gx,
                       d_cc if col_capacity is None else col_capacity,
                       d_sr if slab_rows is None else slab_rows)
-    mbb, tot_bb = _bb_mask(coords, radii, bidx, nb)
+    with tracing.span("ct.hetero.big"):
+        mbb, tot_bb = _bb_mask(coords, radii, bidx, nb)
     if capacity == 0:
         cnt_s, r_ok, no_ovf = slab_count_dual(plan, split_ok=True, base=2)
-        tot_bs, ovf_bs = bigpass.big_count_only(bigs, plan.stream)
+        with tracing.span("ct.hetero.big"):
+            tot_bs, ovf_bs = bigpass.big_count_only(bigs, plan.stream)
         pairs, total = None, cnt_s + tot_bs + tot_bb
         gx_ok, other_ok = plan.ok & r_ok, no_ovf & ovf_bs
     else:
         sa, sb, tot_s, gx_ok, s_other = slab_fill_from_plan(
             plan, capacity, dual_base=2, split_ok=True)
-        bsa, bsb, tot_bs, ovf_bs = bigpass.big_pairs(bigs, plan.stream,
-                                                   capacity)
-        bba, bbb, bb_cap = _bb_extract(mbb, bidx, nb, capacity)
-        pairs, total = _assemble(sa, sb, tot_s, bsa, bsb, tot_bs, bba, bbb,
-                                 bb_cap, tot_bb, capacity)
+        with tracing.span("ct.hetero.big"):
+            bsa, bsb, tot_bs, ovf_bs = bigpass.big_pairs(bigs, plan.stream,
+                                                           capacity)
+            bba, bbb, bb_cap = _bb_extract(mbb, bidx, nb, capacity)
+            pairs, total = _assemble(sa, sb, tot_s, bsa, bsb, tot_bs, bba,
+                                     bbb, bb_cap, tot_bb, capacity)
         other_ok = s_other & ovf_bs
     if with_flags:
         return pairs, total, gx_ok & other_ok, (gx_ok, other_ok)

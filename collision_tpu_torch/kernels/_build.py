@@ -20,19 +20,14 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "collision_tpu_torch"
 _LIB = _BUILD_DIR / "libcollision_kernels.so"
 
-#: Kernel launches per wrapper. Each wrapper adds one where it launches
-#: its kernel and nowhere else, so a run can show which kernels its main
-#: path went through.
-LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
-            "sweep_count_rolled": 0, "sweep_count_aligned": 0,
-            "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
-            "pair_emit": 0, "halo_count": 0, "batched_count": 0,
-            "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0,
-            "row_popcounts": 0}
+#: Kernel launches per wrapper: the port's counter, kept in ``tracing``.
+LAUNCHES = tracing.LAUNCHES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,11 +65,6 @@ _ARGTYPES = {
     # cuda stream
     "grid_emit_launch": [_P, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P],
 }
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def build():

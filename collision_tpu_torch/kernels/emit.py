@@ -25,6 +25,7 @@ hold 0xFFFFFFFF.
 
 import torch
 
+from .. import tracing
 from ..grid import TILE_OFFSETS, _tile_overlap, id_bits, tile_counts_plain
 from ..slabs import NO_PAIR
 from ..utils import round_up
@@ -182,9 +183,11 @@ def grid_fill(bins, grid_dim, cell_capacity, capacity):
     contract, collision.cl:203-207). No host sync: the emission reads the
     hit count on the device.
     """
-    flat = halo_tile_counts(bins, grid_dim, cell_capacity).reshape(-1)
-    total = flat.sum(dtype=torch.int64)
-    tiles, bases, n_hit = fill_entries(flat, capacity)
-    pairs = emit_pairs(bins, tiles, bases, grid_dim, cell_capacity,
-                       capacity, n_hit=n_hit)
+    with tracing.span("ct.grid.counts"):
+        flat = halo_tile_counts(bins, grid_dim, cell_capacity).reshape(-1)
+        total = flat.sum(dtype=torch.int64)
+        tiles, bases, n_hit = fill_entries(flat, capacity)
+    with tracing.span("ct.grid.emit"):
+        pairs = emit_pairs(bins, tiles, bases, grid_dim, cell_capacity,
+                           capacity, n_hit=n_hit)
     return pairs, total

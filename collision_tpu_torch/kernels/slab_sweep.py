@@ -28,6 +28,7 @@ with a float32 twin as their wrap guard.
 
 import torch
 
+from .. import tracing
 from ..columns import LANE
 from ..slabs import DIAG_B, RESIDUAL_JOBS, residual_count
 from . import _build
@@ -148,8 +149,9 @@ def slab_count_dual(plan, j_cap=None, split_ok=False, base=1):
     finer slab grid can fix, no_ovf the int32 guard, which it cannot.
     """
     wcap_c = torch.clamp_max(plan.wcap, base * LANE)
-    count = slab_window_count(plan.stream, plan.starts, plan.w0, wcap_c,
-                              rpw=base)
+    with tracing.span("ct.slab.sweep"):
+        count = slab_window_count(plan.stream, plan.starts, plan.w0, wcap_c,
+                                  rpw=base)
     rcount, r_ok = residual_count(
         plan, RESIDUAL_JOBS if j_cap is None else j_cap, base=base)
     no_ovf = count < INT32_GUARD

@@ -30,6 +30,7 @@ lanes past them.
 import numpy as np
 import torch
 
+from .. import tracing
 from ..columns import CHUNK, LANE
 from ..slabs import RESIDUAL_JOBS, _residual_mask_tables
 from . import _build
@@ -243,6 +244,7 @@ def sweep_masks(plan, rpw=2):
     return out
 
 
+@tracing.spanned("ct.column.residual")
 def column_residual_count(plan, j_cap=None, base=1):
     """(int64 count, ok) of the column-plan window lanes beyond the first
     ``base``*128: the 5-offset form of ``slabs.residual_count``, over the
@@ -275,6 +277,7 @@ def sweep_count_dual(plan, j_cap=None, base=1):
     if j_cap is None:
         j_cap = default_column_j_cap(plan, base)
     sweep_plan = plan._replace(wcap=torch.clamp_max(plan.wcap, base * LANE))
-    cnt, no_wrap = sweep_count_guarded(sweep_plan, rpw=base, rolled=True)
+    with tracing.span("ct.column.sweep"):
+        cnt, no_wrap = sweep_count_guarded(sweep_plan, rpw=base, rolled=True)
     rcnt, r_ok = column_residual_count(plan, j_cap, base)
     return cnt + rcnt, plan.ok & r_ok & no_wrap

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .columns import (CHUNK, LANE, _quantize, _scalar, build_stream,
                       chunk_z_ranges)
 from .kernels import compact
@@ -113,6 +114,7 @@ def slab_sort_keys(coords, gx, lo_s, ext, r_max):
     return (col << zbits) | zq, zscale, zext
 
 
+@tracing.spanned("ct.slab.plan")
 def plan_slabs(coords, radii, gx, col_capacity, slab_rows):
     """Sort by (x-slab, z) and precompute the slab sweep kernels' inputs.
 
@@ -314,6 +316,7 @@ def _residual_mask(plan, j_cap, base, dmin=0):
         plan.mc, len(SLAB_OFFSETS), j_cap, base, dmin)
 
 
+@tracing.spanned("ct.slab.residual")
 def residual_count(plan, j_cap=RESIDUAL_JOBS, base=1, dmin=0):
     """(int64 count, ok) of the window lanes beyond the first ``base``*128:
     the part of each window that the ``base``-row sweep kernels clip.
@@ -344,6 +347,7 @@ def residual_row_mask(plan, p_cap=RESIDUAL_PAIRS, base=1):
     return small, rowsel, a_idf, b_idf, count, ok
 
 
+@tracing.spanned("ct.slab.residual")
 def residual_pairs(plan, p_cap=RESIDUAL_PAIRS, base=1):
     """(ida[p_cap], idb[p_cap], count, ok): original-id pairs of the
     clipped window remainders past ``base``*128 lanes, in ascending (job,

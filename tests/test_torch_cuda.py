@@ -870,3 +870,75 @@ def test_adversarial_scene_on_card(cuda, name):
 
     coords, radii, grid_dim = SCENES[name]()
     check_engines(coords, radii, grid_dim, cuda)
+
+
+#: One frame a route at n = 2^18, for the host-sync count: the
+#: benchmark cells' traffic (the slab count and fill at gx 1000, the grid
+#: fill) and the port's other routes. name -> (scene, capacity, kwargs).
+SYNC_N = 1 << 18
+SYNC_ROUTES = {
+    "slab_count_gx1000": ("uniform", 0, {"method": "slab", "gx": 1000}),
+    "slab_fill_gx1000": ("uniform", 65536, {"method": "slab", "gx": 1000}),
+    "grid_fill": ("uniform", 65536, {"method": "grid"}),
+    "grid_count": ("uniform", 0, {"method": "grid"}),
+    "column_count": ("uniform", 0, {"method": "column"}),
+    "column_fill": ("uniform", 65536, {"method": "column"}),
+    "auto_count": ("uniform", 0, {}),
+    "auto_fill": ("uniform", 65536, {}),
+    "hetero_count": ("power_law", 0, {"method": "hetero"}),
+    "hetero_fill": ("power_law", 1 << 20, {"method": "hetero"}),
+    "hetero_column_count": ("power_law", 0, {"method": "hetero", "gxy": 13}),
+    "float64_fill": ("float64", 65536, {}),
+    "collider_fill": ("collider", 65536, {}),
+    "collider_retry": ("retry", 0, {}),
+}
+
+
+def _sync_frame(kind, capacity, kwargs, device):
+    rng = np.random.RandomState(5)
+    n = SYNC_N
+    coords = rng.random((n, 3))
+    if kind == "power_law":
+        radii = (0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.35) / 8
+    else:
+        radii = rng.uniform(0, 1 / np.sqrt(n), n)
+    if kind == "retry":
+        # One xy patch as wide as a sphere: every sphere in one column,
+        # past the default capacity, so the column ladder runs.
+        coords[:, :2] *= 1e-3
+        radii = np.full(n, 5e-4)
+    if kind in ("collider", "retry"):
+        c = Collider(n, method="column" if kind == "retry" else "auto")
+        coords, radii = coords.astype("float32"), radii.astype("float32")
+        if capacity:
+            return lambda: c.get_collisions(coords, radii, capacity)
+        return lambda: c.get_collisions(coords, radii, 0, collisions=None)
+    dtype = torch.float64 if kind == "float64" else torch.float32
+    coords = torch.from_numpy(coords).to(device, dtype)
+    radii = torch.from_numpy(radii).to(device, dtype)
+    return lambda: collide(coords, radii, capacity, **kwargs)
+
+
+@pytest.mark.parametrize("name", list(SYNC_ROUTES))
+def test_host_syncs_match_the_sync_debug_mode(cuda, name):
+    """Each route's ``HOST_SYNCS`` growth over one frame equals the
+    synchronizing operations that ``torch.cuda.set_sync_debug_mode``
+    warns of during it."""
+    import warnings
+
+    from collision_tpu_torch import tracing
+
+    run = _sync_frame(*SYNC_ROUTES[name], cuda)
+    run()
+    torch.cuda.synchronize()
+    before = sum(tracing.HOST_SYNCS.values())
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    warned = [str(w.message) for w in caught
+              if "synchronizing CUDA operation" in str(w.message)]
+    assert len(warned) == sum(tracing.HOST_SYNCS.values()) - before
