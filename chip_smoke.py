@@ -190,7 +190,7 @@ GRID_CONFIG = (24, 120)
 GRID_ODD = 25
 GRID_OVERFLOW_CAPACITY = 64
 GRID_KERNELS = ("batched_count", "grid_tile_counts", "compact_mask",
-                "grid_emit")
+                "grid_emit", "grid_bins")
 #: The diagonal count's span on the main path, and the same-z cluster
 #: that must flag: n, seed, radius, span.
 DIAG_D_MAX = 48
@@ -245,10 +245,11 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
     from collision_tpu_torch.kernels import (batched, bigpass, compact, emit,
-                                             halo, pair_emit, slab_sweep,
-                                             sweep)
+                                             grid_bins, halo, pair_emit,
+                                             slab_sweep, sweep)
 
-    swaps = [(slab_sweep, "slab_window_count"), (slab_sweep, "slab_masks"),
+    swaps = [(grid_bins, "build_bins"),
+             (slab_sweep, "slab_window_count"), (slab_sweep, "slab_masks"),
              (slab_sweep, "diag_count"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
@@ -1071,7 +1072,7 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
     records and the step times."""
     import torch
     from collision_tpu_torch import Collider, collide, grid
-    from collision_tpu_torch.kernels import batched, emit, halo
+    from collision_tpu_torch.kernels import batched, emit, grid_bins, halo
 
     t0 = time.perf_counter()
     gd, mc = GRID_CONFIG
@@ -1119,6 +1120,28 @@ def grid_path(dev, record, launches, coords, radii, expected, dense):
     check(not bool(d_first.ok) and int(d_count) == len(d_expected),
           f"Collider(method='grid') n={ORACLE_N}: grid attempt not ok, retry "
           f"count {int(d_count)} == oracle")
+
+    # --- the bins chain against the plain path, bit for bit ---
+    # (bytes: centres and radii read once, bins and ids written once; the
+    # sort's digit passes, each reading and writing the 32-bit keys and
+    # ids, beside them as sort_bytes)
+    want = grid.build_grid_plain(coords, radii, gd, mc)
+    got = grid_bins.build_bins(coords, radii, gd, mc)
+    bins_err = max(max_abs_err(got[0].view(torch.int32),
+                               want[0].view(torch.int32)),
+                   max_abs_err(got[2], want[2]),
+                   int(bool(got[1]) != bool(want[1])))
+    sort_bytes = 16 * N * -(-((gd ** 3 - 1).bit_length()) // 8)
+    record("grid_bins", "collision_tpu_torch/csrc/grid_bins.cu",
+           "none (XLA ops: collision_tpu/grid.py build_grid)", bins_err,
+           lambda: grid_bins.build_bins(coords, radii, gd, mc),
+           lambda: grid.build_grid_plain(coords, radii, gd, mc),
+           nbytes(coords, radii, got[0], got[2]), 0,
+           extra={"sort_bytes": sort_bytes,
+                  "bound_with_sort_ms": bound(nbytes(coords, radii, got[0],
+                                                     got[2]) + sort_bytes,
+                                              0)[0]})
+    del want, got
 
     # --- the four kernels against their plain versions at N's bins ---
     # (tile counts and totals at both grid_dims, the count kernel's tests

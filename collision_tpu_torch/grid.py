@@ -10,7 +10,11 @@ positive neighbour offsets. A cell past ``cell_capacity`` is reported
 
 The JAX package's ``build_grid(method=...)`` and its TPU "compact" branch
 (a Pallas compaction plus a wide-block gather) are not ported: both of
-its methods give the same bins, and here one scatter places the rows.
+its methods give the same bins. On a CUDA tensor the bins come from the
+hand-written chain of ``kernels.grid_bins`` (bounds, cell keys, a stable
+sort on the key's bits, one pass that writes every slot, no host sync);
+on a CPU tensor from :func:`build_grid_plain`, a sort and one row
+scatter, the same bins bit for bit.
 """
 
 from typing import NamedTuple
@@ -19,7 +23,6 @@ import numpy as np
 import torch
 
 from . import tracing
-from .columns import _scalar
 
 #: Neighbor offsets covering each unordered cell pair once: (0,0,0) handled
 #: separately with an upper-triangle mask; these 13 are the lexicographically
@@ -55,7 +58,7 @@ def id_bits(lane):
 
 
 #: ``build_grid``'s methods: the JAX package's binning paths. The port
-#: has one, a sort and one row scatter, and takes every name for it.
+#: has one path on each device and takes every name for it.
 BUILD_METHODS = ("auto", "scatter", "compact")
 
 
@@ -73,23 +76,43 @@ def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
 
     ``method`` ("auto", "scatter" or "compact") picks a binning path in
     the JAX package; every one gives the same bins there and here, where
-    one path serves them all.
+    one path on each device serves them all: the kernel chain of
+    ``kernels.grid_bins`` on a CUDA tensor, :func:`build_grid_plain` on a
+    CPU tensor.
     """
     if method not in BUILD_METHODS:
         raise ValueError(f"method {method!r} not in {BUILD_METHODS}")
+    from .kernels import grid_bins
+
+    return grid_bins.build_bins(coords, radii, grid_dim, cell_capacity)
+
+
+def build_grid_plain(coords, radii, grid_dim, cell_capacity):
+    """Plain PyTorch version of :func:`build_grid`: one stable sort by cell
+    id, one row scatter. The CPU route, and the card's reference.
+
+    Its divisor is made on the tensors' device and counted as no host
+    sync: on the CPU route it waits for nothing, and a CUDA tensor's
+    route is the kernel chain. Takes no sphere too (all +inf bins).
+    """
     dev = coords.device
     dt = coords.dtype
     n = coords.shape[0]
     gd, M = grid_dim, cell_capacity
     gp = gd + 2
+    if n == 0:
+        return (torch.full((gp, gp, gp, M, 8), np.inf, dtype=dt, device=dev),
+                torch.ones((), dtype=torch.bool, device=dev),
+                torch.zeros((0,), dtype=torch.int64, device=dev))
 
     lo_s = coords.amin(0)
     hi_s = coords.amax(0)
     # The divisor is a tensor: torch on the card divides by a Python number
     # through its reciprocal, which is not IEEE division and would bin
     # spheres into other cells than the JAX package.
-    s = torch.maximum(2 * radii.amax(), (hi_s - lo_s) / _scalar(gd, coords))
-    s = torch.where(s > 0, s, _scalar(1, coords))
+    gd_t = torch.tensor(float(gd), dtype=dt, device=dev)
+    s = torch.maximum(2 * radii.amax(), (hi_s - lo_s) / gd_t)
+    s = torch.where(s > 0, s, torch.ones_like(s))
     cxyz = torch.clamp(((coords - lo_s) / s).to(torch.int32), 0, gd - 1).long()
     cell = (cxyz[:, 0] * gd + cxyz[:, 1]) * gd + cxyz[:, 2]
 
@@ -106,7 +129,7 @@ def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
 
     # Rank within the cell: distance from the cell's first sorted index.
     rank = torch.arange(n, device=dev) - torch.searchsorted(cell_s, cell_s)
-    ok = (rank < M).all() if n else torch.ones((), dtype=torch.bool, device=dev)
+    ok = (rank < M).all()
 
     # One row scatter straight into the padded grid; rows past the
     # capacity land in one dump row, cut off afterwards.

@@ -64,6 +64,11 @@ _ARGTYPES = {
     # bins, gd, M, tile_pad, tiles, bases, h, hit count, capacity, pairs,
     # cuda stream
     "grid_emit_launch": [_P, _I, _I, _I, _P, _P, _L, _P, _L, _P, _P],
+    # n, gd, f64, out bytes
+    "grid_bins_workspace": [_L, _I, _I, _P],
+    # coords, radii, n, gd, M, f64, workspace, its bytes, bins, ids, ok,
+    # cuda stream
+    "grid_bins_launch": [_P, _P, _L, _I, _I, _I, _P, _L, _P, _P, _P, _P],
 }
 
 

@@ -49,7 +49,7 @@ LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
             "pair_emit": 0, "halo_count": 0, "batched_count": 0,
             "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0,
-            "row_popcounts": 0}
+            "row_popcounts": 0, "grid_bins": 0}
 
 #: Host syncs per site (``module.function``).
 HOST_SYNCS = collections.Counter()

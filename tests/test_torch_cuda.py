@@ -728,16 +728,86 @@ def test_grid_collide_on_card_matches_cpu(cuda, knobs):
             assert torch.equal(got.pairs.cpu(), want.pairs)
 
 
-@pytest.mark.parametrize("grid_dim", [24, 25])
-def test_build_grid_on_card_matches_cpu(cuda, grid_dim):
-    # At 1M spheres the cell size divides by grid_dim on the card: a
-    # division by a Python number there would bin by its reciprocal.
-    coords, radii = _scene(1_000_000, 1 / np.sqrt(1_000_000), 4)
-    want = grid.build_grid(coords, radii, grid_dim, 120)
-    got = grid.build_grid(coords.to(cuda), radii.to(cuda), grid_dim, 120)
-    assert bool(got[1]) == bool(want[1]) and bool(want[1])
-    assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
-    assert torch.equal(got[2].cpu(), want[2])
+def _bins_case(name):
+    """(coords, radii, grid_dim, cell_capacity, ok) of a case of the bins'
+    test: the 1M uniform scene at several grid_dims (64^3 = 2^18 cells,
+    the widest key; at 4 every cell overflows), an overflowing cluster,
+    every sphere at one point with zero radii (the cell size's fallback
+    to 1), no sphere, spheres on the scene's upper corner (the clamp) and
+    float64."""
+    if name.startswith("uniform_gd"):
+        coords, radii = _scene(1_000_000, 1 / np.sqrt(1_000_000), 4)
+        gd = int(name[len("uniform_gd"):])
+        return coords, radii, gd, 120, gd > 4
+    if name == "float64":
+        coords, radii = _scene(1_000_000, 1 / np.sqrt(1_000_000), 4)
+        return coords.double(), radii.double(), 24, 120, True
+    if name == "overflow":
+        # 300 spheres inside one cell of a 3000-sphere scene: the first
+        # 64 by id are kept there.
+        coords, radii = _scene(3000, 0.01, 7)
+        coords[:300] = 0.51 + 0.01 * coords[:300]
+        return coords, radii, 8, 64, False
+    if name == "one_point":
+        return (torch.full((1000, 3), 0.3), torch.zeros(1000), 6, 1000,
+                True)
+    if name == "empty":
+        return torch.zeros((0, 3)), torch.zeros((0,)), 5, 16, True
+    assert name == "upper_corner"
+    coords, radii = _scene(5000, 1e-4, 8)
+    coords[:40] = 1.0
+    coords[40:80, 0] = 1.0
+    return coords, radii, 25, 64, True
+
+
+BINS_CASES = ["uniform_gd4", "uniform_gd24", "uniform_gd25", "uniform_gd61",
+              "uniform_gd64", "overflow", "one_point", "empty",
+              "upper_corner", "float64"]
+
+
+@pytest.mark.parametrize("case", BINS_CASES)
+def test_build_grid_on_card_matches_cpu(cuda, case):
+    # The card's chain (bounds, keys, a sort on the key's bits, one fill
+    # pass) against the plain path on the CPU, bit for bit. At 1M spheres
+    # the cell size divides by grid_dim: a division other than IEEE would
+    # bin by its reciprocal.
+    coords, radii, gd, mc, want_ok = _bins_case(case)
+    want = grid.build_grid_plain(coords, radii, gd, mc)
+    before = _build.LAUNCHES["grid_bins"]
+    got = grid.build_grid(coords.to(cuda), radii.to(cuda), gd, mc)
+    assert _build.LAUNCHES["grid_bins"] == before + 1
+    assert bool(got[1]) == bool(want[1]) == want_ok
+    bits = torch.int32 if coords.dtype == torch.float32 else torch.int64
+    assert got[0].dtype == want[0].dtype and got[0].shape == want[0].shape
+    assert torch.equal(got[0].cpu().view(bits), want[0].view(bits))
+    assert got[2].dtype == torch.int64 and torch.equal(got[2].cpu(), want[2])
+
+
+def test_grid_frame_launches_the_bins_chain_once(cuda):
+    """One grid frame on the card launches the bins chain once and makes
+    no host sync in the bins (the sync debug mode would raise on one); on
+    the CPU it launches none."""
+    from collision_tpu_torch import tracing
+
+    coords, radii = _grid_scene(3000, 1.5)
+    for dev, launches in ((cuda, 1), (torch.device("cpu"), 0)):
+        c, r = coords.to(dev), radii.to(dev)
+        collide(c, r, 4096, method="grid")
+        before = _build.LAUNCHES["grid_bins"]
+        scalars = tracing.HOST_SYNCS["columns._scalar"]
+        res = collide(c, r, 4096, method="grid")
+        assert _build.LAUNCHES["grid_bins"] == before + launches
+        assert tracing.HOST_SYNCS["columns._scalar"] == scalars
+        assert bool(res.ok) and int(res.count) > 0
+    c, r = coords.to(cuda), radii.to(cuda)
+    torch.cuda.synchronize()
+    syncs = dict(tracing.HOST_SYNCS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ok, _ = grid.build_grid(c, r, 6, 48)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(tracing.HOST_SYNCS) == syncs and bool(ok)
 
 
 def _diag_scene(kind):

@@ -70,12 +70,16 @@ def test_build_grid_matches_jax(name):
     coords, radii, gd, mc = _scene(name)
     jbins, jok, jids = jgrid.build_grid(jnp.asarray(coords),
                                         jnp.asarray(radii), gd, mc)
-    bins, ok, ids = build_grid(torch.from_numpy(coords),
-                               torch.from_numpy(radii), gd, mc)
-    assert bins.shape == jbins.shape and bins.dtype == torch.float32
-    np.testing.assert_array_equal(_bits(bins.numpy()), _bits(jbins))
-    assert bool(ok) == bool(jok) == (name != "cell_overflow")
-    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids).astype(np.int64))
+    # build_grid takes the plain path on a CPU tensor; the plain path is
+    # what the card's kernel chain is held to (tests/test_torch_cuda.py).
+    for build in (build_grid, grid.build_grid_plain):
+        bins, ok, ids = build(torch.from_numpy(coords),
+                              torch.from_numpy(radii), gd, mc)
+        assert bins.shape == jbins.shape and bins.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(bins.numpy()), _bits(jbins))
+        assert bool(ok) == bool(jok) == (name != "cell_overflow")
+        np.testing.assert_array_equal(ids.numpy(),
+                                      np.asarray(jids).astype(np.int64))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -93,6 +97,17 @@ def test_grid_count_matches_jax(name):
                                   np.asarray(want.tile_counts))
     if bool(got.ok):
         assert int(got.total) == len(brute_force_collisions(coords, radii))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_build_grid_takes_no_sphere(dtype):
+    # No sphere: every slot a +inf row, ok, no id; the same on the card
+    # (tests/test_torch_cuda.py).
+    bins, ok, ids = build_grid(torch.zeros((0, 3), dtype=dtype),
+                               torch.zeros((0,), dtype=dtype), 5, 16)
+    assert bins.shape == (7, 7, 7, 16, 8) and bins.dtype == dtype
+    assert bool(torch.isposinf(bins).all()) and bool(ok)
+    assert ids.dtype == torch.int64 and ids.numel() == 0
 
 
 def test_float64_grid_matches_jax():
