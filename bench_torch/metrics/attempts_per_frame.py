@@ -1,0 +1,15 @@
+"""Engine runs a frame, retry rungs included: the program's
+``tracing.ATTEMPTS`` total over every frame the program ran in this
+process (the set-up's warm-up call a frame, then the window's and the
+traced stretch's frames). Read from the loaded program, which this does
+not import; None where the program has no such counter."""
+
+import sys
+
+
+def read(ctx):
+    counter = getattr(sys.modules.get("collision_tpu_torch.tracing"),
+                      "ATTEMPTS", None)
+    if counter is None:
+        return None
+    return sum(counter.values()) / (ctx.traffic["frames"] + ctx.attempted)

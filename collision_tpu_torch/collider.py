@@ -649,7 +649,8 @@ class Collider:
         r_max_all = float(radii.max())
         last = None
         for _ in range(6):
-            plan = plan_columns(coords, radii, gxy, col_cap, slab_rows)
+            plan = plan_columns(coords, radii, gxy, col_cap, slab_rows,
+                                by="retry")
             tracing.host_sync(site, 3)
             need_col = round_up(int(plan.max_col), CHUNK)
             need_slab = int(plan.max_slab_rows) + 2
@@ -757,7 +758,8 @@ class Collider:
             r_small = float(parked.max())
             need_rpw = None
             for _ in range(5):
-                plan = plan_columns(coords, parked, gxy, col_cap, slab_rows)
+                plan = plan_columns(coords, parked, gxy, col_cap, slab_rows,
+                                    by="retry")
                 tracing.host_sync(site, 3)
                 need_col = round_up(int(plan.max_col), CHUNK)
                 need_slab = int(plan.max_slab_rows) + 2

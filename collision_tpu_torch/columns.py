@@ -148,13 +148,14 @@ def _zbits(gxy):
 def _column_sort(coords, radii, gxy):
     """Sort spheres by ``column_id << zbits | quantize(z)``.
 
-    Returns (key_s, order, c_s [n, 3], r_s, lo_s, zscale, r_max): the
-    sorted int64 keys, the original ids in sorted order, the sorted
-    centers and radii, and the quantization parameters. A stable sort of
-    the keys plus one gather equals the JAX package's stable
-    multi-operand ``lax.sort``. Float32 or float64: the geometry and
-    ``zscale`` keep the input's type, as in the JAX package (float64
-    computes ``zmax / zext`` in float64, where float32 rounds zmax up).
+    Returns (key_s, order, c_s [n, 3], r_s, lo_s, zscale, r_max, hi_s):
+    the sorted int64 keys, the original ids in sorted order, the sorted
+    centers and radii, the quantization parameters and the scene's upper
+    corner. A stable sort of the keys plus one gather equals the JAX
+    package's stable multi-operand ``lax.sort``. Float32 or float64: the
+    geometry and ``zscale`` keep the input's type, as in the JAX package
+    (float64 computes ``zmax / zext`` in float64, where float32 rounds
+    zmax up).
     """
     zbits = _zbits(gxy)
     zmax = (1 << zbits) - 1
@@ -174,14 +175,17 @@ def _column_sort(coords, radii, gxy):
     zq = _quantize(coords[:, 2], lo_s[2], zscale, zmax)
     key_s, order = torch.sort((col << zbits) | zq, stable=True)
     return (key_s, order, coords.index_select(0, order),
-            radii.index_select(0, order), lo_s, zscale, r_max)
+            radii.index_select(0, order), lo_s, zscale, r_max, hi_s)
 
 
 @tracing.spanned("ct.column.plan")
-def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
+def plan_columns(coords, radii, gxy, col_capacity, slab_rows, by="engine"):
     """Sort by (column, z) and precompute the column sweep kernels'
     inputs. ``coords`` [n, 3] and ``radii`` [n] are float32 on one
-    device; the plan lives there too."""
+    device; the plan lives there too. ``by`` is the builder counted in
+    ``tracing.PLANS``: "engine", or "retry" for a plan the retry ladder
+    builds for its statistics."""
+    tracing.PLANS[by] += 1
     dev = coords.device
     n = coords.shape[0]
     zbits = _zbits(gxy)
@@ -190,7 +194,7 @@ def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
     ncols = gxy * gxy
     ncols_ext = (gxy + 1) * gxy
 
-    key_s, order, c_s, r_s, lo_s, zscale, r_max = _column_sort(
+    key_s, order, c_s, r_s, lo_s, zscale, r_max, hi_s = _column_sort(
         coords, radii, gxy)
     zext = _scalar(zmax, zscale) / zscale
     col_s = key_s >> zbits
@@ -218,8 +222,11 @@ def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
 
     # Window thresholds in quantized-z space: conservative supersets by
     # monotonicity. Clamp to the finite scene range first (empty chunks
-    # carry +-inf).
-    zhi_scene = lo_s[2] + zext
+    # carry +-inf). ``lo + zmax / zscale`` can round below the topmost
+    # center, and a clamp there would drop that sphere from every window
+    # that reaches it, so the range ends at the larger of the two. The
+    # tables are the JAX plan's wherever its clamp keeps that sphere.
+    zhi_scene = torch.maximum(lo_s[2] + zext, hi_s[2])
     qlo = _quantize(torch.clamp(lo_chunk - r_max, lo_s[2], zhi_scene),
                     lo_s[2], zscale, zmax)
     qhi = _quantize(torch.clamp(hi_chunk + r_max, lo_s[2], zhi_scene),

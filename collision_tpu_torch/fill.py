@@ -87,8 +87,8 @@ def candidate_count(coords, radii, gxy):
     :func:`run_fill` at ``gxy`` columns per axis: the ``cand_capacity``
     a scene needs. The JAX package returns a float32 sum, accurate to
     ~2^-20 relative."""
-    key_s, _, c_s, r_s, lo_s, zscale, r_max = _column_sort(coords, radii,
-                                                           gxy)
+    key_s, _, c_s, r_s, lo_s, zscale, r_max, _ = _column_sort(coords,
+                                                              radii, gxy)
     return _candidate_runs(key_s, c_s, r_s, lo_s, zscale, r_max,
                            gxy)[1].sum()
 
@@ -119,7 +119,7 @@ def run_fill(coords, radii, capacity, gxy, cand_capacity):
         cand_capacity, _CHUNK_ROUND))), _CHUNK_ROUND)
     cand_capacity = round_up(cand_capacity, chunk)
     dev = coords.device
-    key_s, order, c_s, r_s, lo_s, zscale, r_max = _column_sort(
+    key_s, order, c_s, r_s, lo_s, zscale, r_max, _ = _column_sort(
         coords, radii, gxy)
     run_w0, run_len = _candidate_runs(key_s, c_s, r_s, lo_s, zscale, r_max,
                                       gxy)

@@ -132,12 +132,12 @@ def plan_slabs(coords, radii, gx, col_capacity, slab_rows):
     r_s = radii.index_select(0, order)
     return _plan_from_sorted(
         key_s, order, c_s[:, 0], c_s[:, 1], c_s[:, 2], r_s, gx,
-        _xbits_z(gx), lo_s[2], zext, zscale, r_max, col_capacity,
+        _xbits_z(gx), lo_s[2], hi_s[2], zext, zscale, r_max, col_capacity,
         slab_rows)
 
 
 def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
-                      zext, zscale, r_max, col_capacity, slab_rows):
+                      hi_z, zext, zscale, r_max, col_capacity, slab_rows):
     """Stream + window tables from key-sorted sphere data."""
     dev = key_s.device
     n = key_s.shape[0]
@@ -166,8 +166,10 @@ def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
 
     # Window thresholds in quantized-z space: conservative supersets by
     # monotonicity. Clamp to the finite scene range first (empty chunks
-    # carry +-inf); ``zext`` is the exact scene z extent.
-    zhi_scene = lo_z + zext
+    # carry +-inf). ``lo_z + zext`` can round below the topmost center
+    # ``hi_z``, so the range ends at the larger of the two (as in the
+    # column plan).
+    zhi_scene = torch.maximum(lo_z + zext, hi_z)
     qlo = _quantize(torch.clamp(lo_chunk - r_max, lo_z, zhi_scene),
                     lo_z, zscale, zmax)
     qhi = _quantize(torch.clamp(hi_chunk + r_max, lo_z, zhi_scene),

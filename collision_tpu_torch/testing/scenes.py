@@ -318,3 +318,22 @@ def slab_edges(stream, starts, w0, wcap, gx):
         if np.isin(hi, np.nextafter(lo, _F32_INF)).any():
             edges.add("ulp_across_faces")
     return edges
+
+
+def scene_top_rounds_low(n=2000, seed=0):
+    """n spheres in z from -0.8967476 to 0.8492044 (one center on each
+    bound), ten of them touching the topmost sphere, id 1. At gxy 1 the
+    column plan's float32 ``lo + zmax / zscale`` rounds one ulp below the
+    top and its quantum below the topmost sphere's, so a window clamped
+    there would leave that sphere out. Returns (coords, radii)."""
+    lo, hi = np.float32(-0.8967475891113281), np.float32(0.8492043614387512)
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype(np.float32)
+    coords[:, 2] = (lo + (hi - lo) * rng.random(n)).astype(np.float32)
+    coords[0, 2], coords[1, 2] = lo, hi
+    coords[2:12, :2] = coords[1, :2] \
+        + rng.uniform(-0.02, 0.02, (10, 2)).astype(np.float32)
+    coords[2:12, 2] = hi - rng.uniform(0, 0.02, 10).astype(np.float32)
+    radii = rng.uniform(0, 0.03, n).astype(np.float32)
+    radii[1:12] = 0.03
+    return coords, radii

@@ -29,9 +29,12 @@ Counters, always on (a dict increment each):
   on the host, an input copied to the device. Counted on any device, so
   a CPU run counts what the same route waits for on the card;
 - ``ATTEMPTS``: engine runs, by engine; a ``Collider.get_collisions``
-  frame whose first attempt holds makes one, each retry rung one more.
+  frame whose first attempt holds makes one, each retry rung one more;
+- ``PLANS``: column plans built, by builder: ``"engine"`` for a plan a
+  ``collide`` attempt builds, ``"retry"`` for one the retry ladder
+  builds for its statistics alone.
 
-:func:`reset` zeroes all three.
+:func:`reset` zeroes all four.
 """
 
 import collections
@@ -57,6 +60,9 @@ HOST_SYNCS = collections.Counter()
 #: Engine runs per engine ("slab", "column", "hetero", "grid",
 #: "runfill"), whether ``collide`` or the retry ladder starts them.
 ATTEMPTS = collections.Counter()
+
+#: Column plans built per builder ("engine", "retry").
+PLANS = collections.Counter()
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -91,8 +97,10 @@ def host_sync(site, n=1):
 
 
 def reset():
-    """Zero ``LAUNCHES`` and clear ``HOST_SYNCS`` and ``ATTEMPTS``."""
+    """Zero ``LAUNCHES`` and clear ``HOST_SYNCS``, ``ATTEMPTS`` and
+    ``PLANS``."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     HOST_SYNCS.clear()
     ATTEMPTS.clear()
+    PLANS.clear()

@@ -961,6 +961,7 @@ SYNC_ROUTES = {
     "float64_fill": ("float64", 65536, {}),
     "collider_fill": ("collider", 65536, {}),
     "collider_retry": ("retry", 0, {}),
+    "collider_dense": ("dense", 110_000_000, {}),
 }
 
 
@@ -977,7 +978,11 @@ def _sync_frame(kind, capacity, kwargs, device):
         # past the default capacity, so the column ladder runs.
         coords[:, :2] *= 1e-3
         radii = np.full(n, 5e-4)
-    if kind in ("collider", "retry"):
+    if kind == "dense":
+        # The reference benchmark's radii: hundreds of contacts a sphere,
+        # so auto's column fill fails and the ladder runs its rung.
+        radii = rng.uniform(0, 0.06, n)
+    if kind in ("collider", "retry", "dense"):
         c = Collider(n, method="column" if kind == "retry" else "auto")
         coords, radii = coords.astype("float32"), radii.astype("float32")
         if capacity:
@@ -1012,3 +1017,66 @@ def test_host_syncs_match_the_sync_debug_mode(cuda, name):
     warned = [str(w.message) for w in caught
               if "synchronizing CUDA operation" in str(w.message)]
     assert len(warned) == sum(tracing.HOST_SYNCS.values()) - before
+
+
+def _dense_frame(seed, frame):
+    """Frame ``frame`` of the benchmark's ``dense307k-pairs`` stream from
+    ``seed``, drawn on the card as the benchmark draws it."""
+    import importlib.util
+    import json
+
+    bench = Path(__file__).resolve().parents[1] / "bench_torch"
+    spec = importlib.util.spec_from_file_location("bench_scenes",
+                                                  bench / "scenes.py")
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    config = json.loads((bench / "configs/ref-dense-307k.json").read_text())
+    traffic = json.loads((bench / "traffic/pairs-all.json").read_text())
+    scene = scenes.make_scene(config, traffic, seed, torch.device("cuda"))
+    return scene.frames[frame], scene.radii, bench
+
+
+def test_dense_frame_keeps_the_topmost_sphere(cuda):
+    # Seed 3000000003's frame 14: the column plan's lo + zmax / zscale
+    # rounds a quantum below the topmost sphere, 208116 (z = 0.99999809),
+    # which windows clamped there left out (566 of its 573 pairs).
+    import importlib.util
+
+    coords, radii, bench = _dense_frame(3_000_000_003, 14)
+    n = coords.shape[0]
+    assert int(torch.argmax(coords[:, 2])) == 208_116
+    res = collide(coords, radii, 0, method="column", gxy=14,
+                  col_capacity=4608, slab_rows=293, rpw=12)
+    assert bool(res.ok) and int(res.count) == 107_827_986
+    count, pairs = Collider(n).get_collisions(coords, radii, 110_000_000)
+    assert int(count) == 107_827_986
+    pairs = pairs[:int(count)]
+    assert int((pairs == 208_116).any(1).sum()) == 573
+
+    spec = importlib.util.spec_from_file_location(
+        "box_overlap", bench / "references/box_overlap.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+
+    def keys(a, b):
+        return torch.sort(torch.minimum(a, b) * n + torch.maximum(a, b))[0]
+
+    got = keys(pairs[:, 0], pairs[:, 1])
+    del pairs
+    want = torch.cat([torch.minimum(a, b) * n + torch.maximum(a, b)
+                      for a, b in ref.pairs(coords, radii, torch.float32)])
+    assert torch.equal(got, torch.sort(want)[0])
+
+
+@pytest.mark.parametrize("method", ["column", "slab"])
+def test_topmost_sphere_keeps_its_pairs_on_card(cuda, method):
+    from collision_tpu_torch.testing import (brute_force_collisions,
+                                             pair_array_to_set)
+    from collision_tpu_torch.testing.scenes import scene_top_rounds_low
+
+    coords, radii = scene_top_rounds_low()
+    want = brute_force_collisions(coords, radii)
+    res = collide(torch.from_numpy(coords).to(cuda),
+                  torch.from_numpy(radii).to(cuda), 4096, method=method)
+    assert bool(res.ok)
+    assert pair_array_to_set(res.pairs.cpu(), res.count) == want
