@@ -11,7 +11,9 @@ on the reference's dense scene:
 1. the slab engine at 1M spheres, a count-only step and a 16384-capacity
    fill, checked against an independent k-d tree oracle, against the
    same pipeline run with every kernel's plain PyTorch version, and
-   again at a pinned gx=300;
+   again at a pinned gx=300; the slab plan's kernel chain against its
+   plain path, every field bit for bit, at 1M and at the benchmark's 16M
+   spheres and gx 1000 (``slab_plan_16m``), both timed;
 2. the column engine at 1M spheres (``method="column"``, count and fill,
    plus the public ``sweep_count`` at its default aligned rows), checked
    against the same oracle, the slab count and the plain path;
@@ -141,7 +143,10 @@ PINNED_GX = 300
 #: ``auto``'s scenes below the slab crossovers: (n, capacities).
 AUTO_SCENES = ((262144, (CAPACITY,)), (32768, (0, CAPACITY)))
 TRUNC_CAPACITY = 1024
-SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask", "row_popcounts")
+SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask", "row_popcounts",
+                "slab_plan")
+#: The benchmark's slab scene: 16M spheres at a pinned gx of 1000.
+PLAN_16M = (1 << 24, 1000)
 COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks")
 #: The hetero scenes' fill capacity: room for every pair of both.
 HETERO_CAPACITY = 1 << 19
@@ -155,7 +160,7 @@ HETERO_ROUTES = {
                          "sweep_masks", "compact_mask", "row_popcounts")),
     "hetero_giants": (("slab", 146),
                       ("big_count", "big_pairs", "slab_count", "slab_masks",
-                       "compact_mask", "row_popcounts")),
+                       "compact_mask", "row_popcounts", "slab_plan")),
 }
 #: The fills rerun past BIG_FILL_THRESHOLD, where the emission kernel runs.
 BIG_CAPACITY = 1 << 22
@@ -246,9 +251,9 @@ def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
     from collision_tpu_torch.kernels import (batched, bigpass, compact, emit,
                                              grid_bins, halo, pair_emit,
-                                             slab_sweep, sweep)
+                                             slab_plan, slab_sweep, sweep)
 
-    swaps = [(grid_bins, "build_bins"),
+    swaps = [(grid_bins, "build_bins"), (slab_plan, "build_plan"),
              (slab_sweep, "slab_window_count"), (slab_sweep, "slab_masks"),
              (slab_sweep, "diag_count"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
@@ -1243,7 +1248,7 @@ def diag_path(dev, record, launches, coords, radii, expected):
 
     (plan, (count, ok)), run = counted(diag_step)
     for kernel, ran in run.items():
-        check(ran == (kernel in ("diag_count", "slab_count")),
+        check(ran == (kernel in ("diag_count", "slab_count", "slab_plan")),
               f"diag: {kernel} launched {ran}x")
     check(bool(plan.ok) and bool(ok), "diag: plan ok and count ok")
     check(int(count) == len(expected),
@@ -1365,6 +1370,62 @@ def float64_path(dev, coords_np, radii_np):
           counts=[int(res.count) for res in results],
           oks=[bool(res.ok) for res in results], launches=run,
           oracle_seconds=oracle_s, retry_count=int(count), **steps,
+          seconds=time.perf_counter() - t0)
+
+
+def slab_plan_path(dev, record, coords, radii):
+    """The slab plan chain against its plain path, bit for bit, and both
+    timed: its record at N's default plan, and the benchmark's 16M plan
+    at gx 1000 (``slab_plan_16m``). The bound's bytes: centres and radii
+    read once, the stream and tables written once; the sort's four digit
+    passes, each reading and writing the 32-bit keys and ids, beside them
+    (``sort_bytes``), and the keys, ids and packed records written and
+    read once (``scratch_bytes``)."""
+    import torch
+    from collision_tpu_torch import slabs
+    from collision_tpu_torch.kernels import slab_plan
+    from collision_tpu_torch.testing.scenes import slab_plan_mismatches
+
+    def work(c, r, plan):
+        n = c.shape[0]
+        moved = nbytes(c, r, plan.stream, plan.starts, plan.w0, plan.wcap)
+        sort_bytes = 16 * n * -(-(slabs._xbits_z(plan.gx)
+                                  + (plan.gx - 1).bit_length()) // 8)
+        return moved, {"sort_bytes": sort_bytes, "scratch_bytes": 48 * n,
+                       "bound_with_sort_ms": bound(moved + sort_bytes, 0)[0]}
+
+    config = slabs.default_slab_config(coords.shape[0])
+    got = slab_plan.build_plan(coords, radii, *config)
+    bad = slab_plan_mismatches(got, slabs.plan_slabs_plain(coords, radii,
+                                                           *config))
+    check(bad == [], f"slab_plan n={coords.shape[0]}: every field == plain "
+          f"path's ({bad})")
+    moved, extra = work(coords, radii, got)
+    record("slab_plan", "collision_tpu_torch/csrc/slab_plan.cu",
+           "none (XLA ops: collision_tpu/slabs.py plan_slabs)", len(bad),
+           lambda: slab_plan.build_plan(coords, radii, *config),
+           lambda: slabs.plan_slabs_plain(coords, radii, *config), moved, 0,
+           extra=extra)
+    del got
+
+    t0 = time.perf_counter()
+    n, gx = PLAN_16M
+    _, _, c, r = uniform_scene(n, dev)
+    config = slabs.default_slab_config(n, gx=gx)
+    got = slab_plan.build_plan(c, r, *config)
+    bad = slab_plan_mismatches(got, slabs.plan_slabs_plain(c, r, *config))
+    check(bad == [], f"slab_plan n={n} gx={gx}: every field == plain path's "
+          f"({bad})")
+    moved, extra = work(c, r, got)
+    del got
+    torch.cuda.synchronize()
+    phase("slab_plan_16m", n=n, gx=gx, ok=not bad,
+          ms=time_ms(lambda: slab_plan.build_plan(c, r, *config),
+                     batch=KERNEL_BATCH),
+          closed_loop_ms=time_ms(lambda: slab_plan.build_plan(c, r, *config)),
+          plain_ms=time_ms(lambda: slabs.plan_slabs_plain(c, r, *config),
+                           reps=5),
+          bound_ms=bound(moved, 0)[0], **extra,
           seconds=time.perf_counter() - t0)
 
 
@@ -1505,6 +1566,8 @@ def main():
            lambda: compact.compact_mask_plain(small, slabs.RESIDUAL_PAIRS),
            nbytes(small) + 8 * (slabs.RESIDUAL_PAIRS + 1), 0,
            library_fn=lambda: torch.nonzero(small))
+
+    slab_plan_path(dev, record, coords, radii)
 
     # --- step times, kernel path and plain path ---
     steps = {}

@@ -69,6 +69,13 @@ _ARGTYPES = {
     # coords, radii, n, gd, M, f64, workspace, its bytes, bins, ids, ok,
     # cuda stream
     "grid_bins_launch": [_P, _P, _L, _I, _I, _I, _P, _L, _P, _P, _P, _P],
+    # n, gx, zbits, out bytes
+    "slab_plan_workspace": [_L, _I, _I, _P],
+    # coords, radii, n, gx, zbits, mc, col_capacity, slab_rows, stream
+    # rows, workspace, its bytes, stream, starts, w0, wcap, maxima, ok,
+    # diag_thr, cuda stream
+    "slab_plan_launch": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _P, _L, _P, _P,
+                         _P, _P, _P, _P, _P, _P],
 }
 
 

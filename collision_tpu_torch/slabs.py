@@ -8,8 +8,9 @@ kernel test is exact, and capacity overflows are detected (``ok=False``),
 never silently wrong.
 
 Differences from the JAX plan, none of which changes a shared field:
-sort keys and positions are int64 (torch's uint32 has no ``<<`` and no
-``searchsorted``), and ``slab_r0`` (the TPU kernel's DMA ring) is not
+the plain path's sort keys and positions are int64 (torch's uint32 has
+no ``<<`` and no ``searchsorted``; the card's chain, ``kernels.slab_plan``,
+sorts uint32 keys), and ``slab_r0`` (the TPU kernel's DMA ring) is not
 built.
 """
 
@@ -114,13 +115,33 @@ def slab_sort_keys(coords, gx, lo_s, ext, r_max):
     return (col << zbits) | zq, zscale, zext
 
 
+def stream_rows(n, slab_rows):
+    """Rows of the plan's [rows, 8, 128] stream for ``n`` spheres: every
+    sorted sphere, ``slab_rows + 2`` rows past them, rounded so that the
+    diagonal count's blocks of ``DIAG_B`` rows each have a successor."""
+    r = -(-n // LANE)
+    return max(-(-(r + slab_rows + 2) // DIAG_B), r // DIAG_B + 2) * DIAG_B
+
+
 @tracing.spanned("ct.slab.plan")
 def plan_slabs(coords, radii, gx, col_capacity, slab_rows):
     """Sort by (x-slab, z) and precompute the slab sweep kernels' inputs.
 
     ``coords`` [n, 3] and ``radii`` [n] are float32 on one device; the
-    plan lives there too.
+    plan lives there too. A CUDA tensor's plan is built by the kernel
+    chain of ``kernels.slab_plan``, which reads nothing back on the host;
+    a CPU tensor's by :func:`plan_slabs_plain`. Both give the same plan
+    bit for bit.
     """
+    from .kernels import slab_plan
+
+    return slab_plan.build_plan(coords, radii, gx, col_capacity, slab_rows)
+
+
+def plan_slabs_plain(coords, radii, gx, col_capacity, slab_rows):
+    """Plain PyTorch version of :func:`plan_slabs`: the CPU route, and the
+    card's reference. On a CUDA tensor it waits for the device six times
+    (the ``columns._scalar`` constants and ``chunk_z_ranges``' bound)."""
     lo_s, hi_s = scene_bounds(coords)
     r_max = torch.amax(radii)
     ext = hi_s - lo_s
@@ -151,12 +172,10 @@ def _plan_from_sorted(key_s, ids_s, x_s, y_s, z_s, r_s, gx, zbits, lo_z,
         col_s, torch.arange(gx + 2, device=dev)).to(torch.int32)
 
     # --- stream tensor [Rp, 8, 128] ---
-    R = -(-n // LANE)
-    Rp = max(-(-(R + slab_rows + 2) // DIAG_B), R // DIAG_B + 2) * DIAG_B
     zlo, zhi = z_s - r_s, z_s + r_s
     stream = build_stream(
         [x_s - r_s, y_s - r_s, zlo, x_s + r_s, y_s + r_s, zhi], ids_s,
-        col_s.to(torch.float32).view(torch.int32), Rp)
+        col_s.to(torch.float32).view(torch.int32), stream_rows(n, slab_rows))
 
     # --- exact per-chunk z ranges ---
     lo_chunk, hi_chunk = chunk_z_ranges(starts, gx, mc, zlo, zhi)

@@ -337,3 +337,61 @@ def scene_top_rounds_low(n=2000, seed=0):
     radii = rng.uniform(0, 0.03, n).astype(np.float32)
     radii[1:12] = 0.03
     return coords, radii
+
+
+def slab_plan_scene(kind, n, seed):
+    """n spheres for the slab plan's edges, as (coords, radii), centres
+    U(0, 1)^3 and radii U(0, 1/sqrt(n)) but where ``kind`` says:
+    "uniform" none; "flat_z" every centre at z 0.5 (a zero z extent: the
+    plan's scale falls back to 1); "zero_radii" every radius 0 (r_max 0);
+    "giant" sphere 0 of radius 0.5 (slabs at least 1 wide: every sphere in
+    slab 0); "ties" every centre one of 7 points, so
+    spheres share keys and only a stable sort keeps them in id order;
+    "parked" every 17th radius -inf, as the hetero engine parks its big
+    spheres."""
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype(np.float32)
+    radii = rng.uniform(0, 1 / np.sqrt(n), n).astype(np.float32)
+    if kind == "flat_z":
+        coords[:, 2] = 0.5
+    elif kind == "zero_radii":
+        radii[:] = 0
+    elif kind == "giant":
+        radii[0] = 0.5
+    elif kind == "ties":
+        coords = coords[rng.randint(0, min(n, 7), n)]
+    elif kind == "parked":
+        radii[::17] = -_F32_INF
+    else:
+        assert kind == "uniform", kind
+    return coords, radii
+
+
+#: :func:`slab_plan_scene`'s kinds.
+SLAB_PLAN_KINDS = ("uniform", "flat_z", "zero_radii", "giant", "ties",
+                   "parked")
+
+
+def slab_plan_mismatches(got, want):
+    """The fields in which two ``slabs.SlabPlan`` differ, on any devices:
+    a tensor's dtype, shape or bits (floats compared as their int32 bit
+    patterns, so signed zeros count), an int's value. Empty when they are
+    the same plan."""
+    import torch
+
+    bad = []
+    for name, a in got._asdict().items():
+        b = getattr(want, name)
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                bad.append(name)
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(name)
+            continue
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            bad.append(name)
+    return bad

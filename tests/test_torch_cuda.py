@@ -810,6 +810,86 @@ def test_grid_frame_launches_the_bins_chain_once(cuda):
     assert dict(tracing.HOST_SYNCS) == syncs and bool(ok)
 
 
+#: (kind, n, gx, seed) of the slab plan chain's cases: the kinds of
+#: ``testing.scenes.slab_plan_scene``; gx None: the default config.
+PLAN_CASES = [
+    ("uniform", 2, 1, 0), ("uniform", 63, 7, 1), ("uniform", 64, 1000, 2),
+    ("uniform", 129, 4096, 3), ("uniform", 100_000, 1000, 4),
+    ("uniform", 100_000, None, 5), ("uniform", 1_000_000, 1000, 6),
+    ("uniform", 1_000_000, None, 7), ("flat_z", 100_000, 7, 8),
+    ("flat_z", 1_000_000, 1000, 9), ("zero_radii", 129, 1, 10),
+    ("zero_radii", 100_000, 1000, 11), ("giant", 64, 7, 12),
+    ("giant", 100_000, None, 13), ("ties", 63, 4096, 14),
+    ("ties", 100_000, 1000, 15), ("ties", 1_000_000, 7, 16),
+    ("parked", 100_000, 4096, 17), ("parked", 1_000_000, None, 18)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_slab_plan_chain_matches_plain(cuda, case):
+    # The card's chain (bounds and scalars, keys, a sort on the key's
+    # bits, the stream pass, the tables) against the plain path on the
+    # same CUDA tensors, every field bit for bit.
+    from collision_tpu_torch.kernels import slab_plan
+    from collision_tpu_torch.testing.scenes import (slab_plan_mismatches,
+                                                    slab_plan_scene)
+
+    kind, n, gx, seed = case
+    coords, radii = slab_plan_scene(kind, n, seed)
+    c, r = torch.from_numpy(coords).to(cuda), torch.from_numpy(radii).to(cuda)
+    config = slabs.default_slab_config(n, gx=gx)
+    want = slabs.plan_slabs_plain(c, r, *config)
+    before = _build.LAUNCHES["slab_plan"]
+    got = slabs.plan_slabs(c, r, *config)
+    assert _build.LAUNCHES["slab_plan"] == before + 1
+    assert got.stream.is_cuda and got.w0.is_cuda
+    assert slab_plan_mismatches(got, want) == []
+    assert slab_plan_mismatches(slab_plan.build_plan(c, r, *config), want) == []
+
+
+def test_slab_frames_launch_the_plan_chain_once(cuda, monkeypatch):
+    """A count frame and a fill frame at 1M on the card each launch the
+    plan chain once, and nothing inside ``plan_slabs`` makes the host wait
+    (the sync debug mode would raise on one); the count frame waits for
+    nothing at all. On the CPU the plan launches nothing."""
+    from collision_tpu_torch import collider, tracing
+
+    coords, radii = _scene(1_000_000, 1 / np.sqrt(1_000_000), 30)
+    c, r = coords.to(cuda), radii.to(cuda)
+
+    def strict(plan):
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return plan(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    monkeypatch.setattr(collider, "plan_slabs", strict(slabs.plan_slabs))
+    monkeypatch.setattr(fill, "plan_slabs", strict(slabs.plan_slabs))
+    for capacity in (0, 65536):
+        collide(c, r, capacity, method="slab")
+        torch.cuda.synchronize()
+        before = _build.LAUNCHES["slab_plan"]
+        syncs = sum(tracing.HOST_SYNCS.values())
+        res = collide(c, r, capacity, method="slab")
+        assert _build.LAUNCHES["slab_plan"] == before + 1
+        # The fill's two are the sparse emission's (fill._mask_fill_emit).
+        assert sum(tracing.HOST_SYNCS.values()) == syncs + (2 if capacity else 0)
+        assert bool(res.ok) and int(res.count) > 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = collide(c, r, 0, method="slab")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(res.ok)
+    tracing.reset()
+    slabs.plan_slabs(coords[:3000], radii[:3000],
+                     *slabs.default_slab_config(3000))
+    assert not any(tracing.LAUNCHES.values())
+
+
 def _diag_scene(kind):
     """The uniform parity scene, or every sphere at one z (partners at any
     sorted distance: the detector must flag)."""

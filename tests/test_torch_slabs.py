@@ -10,6 +10,10 @@ import torch
 
 from collision_tpu import slabs as jslabs
 from collision_tpu_torch import slabs
+from collision_tpu_torch.kernels import slab_plan
+from collision_tpu_torch.testing.scenes import (SLAB_PLAN_KINDS,
+                                                slab_plan_mismatches,
+                                                slab_plan_scene)
 
 PLAN_TENSORS = ("starts", "w0", "wcap", "ok", "max_col", "max_slab_rows",
                 "rows_rolled")
@@ -132,3 +136,41 @@ def test_residual_pairs(p_cap):
     assert bool(tok) == (p_cap == 4096)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja).astype(np.int64))
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb).astype(np.int64))
+
+
+#: (kind, n, gx) of the plan's edge scenes; gx None: the default config.
+EDGE_PLANS = [(kind, n, gx) for kind in SLAB_PLAN_KINDS
+              for n, gx in ((2, 1), (63, 7), (129, None))] + [
+    ("uniform", 64, 4096), ("ties", 3000, 7), ("giant", 1000, None)]
+
+
+@pytest.mark.parametrize("kind,n,gx", EDGE_PLANS)
+def test_build_plan_on_cpu_is_the_plain_plan(kind, n, gx):
+    # On a CPU tensor the chain's wrapper and plan_slabs both return the
+    # plain path's plan, the plan the card's chain is held to
+    # (tests/test_torch_cuda.py); that plan is the JAX package's.
+    coords, radii = slab_plan_scene(kind, n, n + 5)
+    config = slabs.default_slab_config(n, gx=gx)
+    c, r = torch.from_numpy(coords), torch.from_numpy(radii)
+    want = slabs.plan_slabs_plain(c, r, *config)
+    for got in (slab_plan.build_plan(c, r, *config),
+                slabs.plan_slabs(c, r, *config)):
+        assert slab_plan_mismatches(got, want) == []
+    jp = jslabs.plan_slabs(jnp.asarray(coords), jnp.asarray(radii), *config)
+    d = _jax_fields(jp)
+    _assert_plans_equal(d, want)
+    np.testing.assert_array_equal(want.diag_thr.numpy().view(np.uint32),
+                                  d["diag_thr"].view(np.uint32))
+    if kind == "giant":
+        assert int(want.max_col) == n   # every sphere in slab 0
+
+
+def test_plan_slabs_on_cpu_launches_nothing():
+    from collision_tpu_torch import tracing
+
+    coords, radii = slab_plan_scene("uniform", 2000, 3)
+    tracing.reset()
+    slabs.plan_slabs(torch.from_numpy(coords), torch.from_numpy(radii),
+                     *slabs.default_slab_config(2000))
+    assert not any(tracing.LAUNCHES.values()), tracing.LAUNCHES
+    assert sum(tracing.HOST_SYNCS.values()) == 6
