@@ -152,7 +152,7 @@ __device__ __forceinline__ Lanes load_lanes(const float* __restrict__ s,
 // The same for lanes of a rolled window row [js, je), whose words start
 // at js: j0 >= js of either parity, so a lane pair may span two stream
 // rows, and each lane is loaded on its own (on an H100 no slower than
-// one 8-byte load a component where j0 is even: masks_variants.py).
+// one 8-byte load a component where j0 is even).
 // Lanes from je on are read at je - 1, inside the stream, and stay out
 // of the range.
 __device__ __forceinline__ Lanes load_rolled_lanes(

@@ -67,7 +67,7 @@
 // 0.058, without the stop 0.070, one wave of resident blocks striding
 // over the entries 0.043, without the cull 0.040 (0.34 against 0.29 on
 // the dense oracle scene's grid (8, 192)); two rows a vote 0.038, but
-// 0.45 on that dense grid (emit_diag_variants.py). A b cell of more
+// 0.45 on that dense grid. A b cell of more
 // than 128 live rows reloads its chunks for each a row; on the dense
 // grid, cells of ~128 rows, the emission matches the block kernel
 // (0.29 ms each). Slots are int64 and written below capacity only. Ids

@@ -17,10 +17,8 @@
 // holds more. Bit for bit the plain path's bins: the cell size is s =
 // max(2 r_max, (hi - lo) / gd) on each axis, 1 where not positive; a
 // sphere's cell is clamp(trunc((c - lo) / s), 0, gd - 1) on each axis; the
-// key (cx gd + cy) gd + cz; every subtraction, addition and division IEEE
-// and rounded to nearest, stated by intrinsic rather than left to flags
-// (built without --use_fast_math); the sort stable, so ids stay in id
-// order within a cell.
+// key (cx gd + cy) gd + cz, the arithmetic rounded as bucket_sort.cuh
+// says; the sort stable, so ids stay in id order within a cell.
 //
 // What bounds it on the H100. At 16M spheres, gd 61 and M 120: the
 // centres and radii, 256 MB, read once; the bins, 63^3 * 120 * 32 B = 960
@@ -29,29 +27,12 @@
 // digit passes of 128 MB read and 128 MB written each: 0.23 ms more.
 //
 // What the design does about it. Five kernels and cub's sort in stream
-// order, nothing read back by the host:
-// 1. bounds_partial_kernel: a fixed grid of blocks, a multiple of 3 of
-//    them, so each thread reads one axis of the flat [n, 3] centres,
-//    coalesced; each block writes the min and max of each axis and the
-//    largest radius.
-// 2. bounds_final_kernel: one block folds the partials into the cell size
-//    and sets ok. gd arrives as an argument: no constant from the host.
-// 3. keys_kernel: a uint32 key and the uint32 id of each sphere, and its
-//    centre and radius packed into one aligned 16-byte (float) or 32-byte
-//    (double) record, so the fill's gather by id reads one sector a
-//    sphere where the [n, 3] centres and the radii took two or three.
-// 4. cub::DeviceRadixSort::SortPairs (LSD, stable) on bits [0,
-//    bit_length(gd^3 - 1)) only: 3 digit passes at gd 61 where a 64-bit
-//    key takes 8, the keys and ids in double buffers of the workspace.
-// 5. starts_kernel: each cell's first sorted index, a thread and a binary
-//    search a cell (gd^3 + 1 of them, all at once).
-// 6. fill_kernel: a warp a padded cell writes the cell's M rows as one
-//    contiguous run, 16 bytes a lane (two lanes a float row, four a
-//    double row): the first min(count, M) sorted spheres, their packed
-//    records gathered by id, then +inf rows; halo cells +inf only. It also
-//    writes the cell's ids, widened to int64, and clears ok on overflow.
-// So the bins are written once and never filled first, and nothing the
-// size of [n, 8] or an int64 key is materialised.
+// order, nothing read back by the host (* marks bucket_sort.cuh's steps):
+// bounds_partial_kernel*, bounds_final_kernel, keys_kernel, sort_pairs*
+// on bits [0, bit_length(gd^3 - 1)) only (3 digit passes at gd 61 where a
+// 64-bit key takes 8), starts_kernel and fill_kernel, which writes every
+// bin slot once, never filled first. Nothing the size of [n, 8] or an
+// int64 key is materialised.
 //
 // On an H100 at 16M spheres the chain takes 1.66-1.68 ms of device time
 // (the torch ops it replaces: 11.77): the fill 0.91, cub's sort 0.42 (its
@@ -63,41 +44,9 @@
 // slots, 0.74 + 0.15 ms (1.5% less in all, for one launch more);
 // streaming stores (st.global.cs) for the bins changed nothing.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
-
-#include <cub/device/device_radix_sort.cuh>
+#include "bucket_sort.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-// Bounds blocks at most: 8 a SM on 132 SMs, and a multiple of 3.
-constexpr int BOUNDS_BLOCKS = 1056;
-constexpr long long ALIGN = 256;
-
-__device__ inline float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ inline double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ inline float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ inline double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ inline float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ inline double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-
-template <typename T>
-__device__ inline T lesser(T a, T b) { return b < a ? b : a; }
-template <typename T>
-__device__ inline T greater(T a, T b) { return b > a ? b : a; }
-
-template <typename T>
-__device__ inline T pos_inf();
-template <>
-__device__ inline float pos_inf<float>() { return __int_as_float(0x7f800000); }
-template <>
-__device__ inline double pos_inf<double>() {
-  return __longlong_as_double(0x7ff0000000000000LL);
-}
 
 // A bin row as 16-byte stores: LANES lanes a row, lane q its words
 // [q * 16 / sizeof(T), (q + 1) * 16 / sizeof(T)).
@@ -142,90 +91,14 @@ struct Row<double> {
   }
 };
 
-// A sphere's centre and radius, one aligned 16- or 32-byte load.
-template <typename T>
-struct alignas(4 * sizeof(T)) Sphere {
-  T x, y, z, r;
-};
-
-// The bounds' seven values: lo[3] (min), hi[3] (max), r_max (max).
-constexpr int NB = 7;
-
-template <typename T>
-__device__ inline T fold(int k, T a, T b) {
-  return k < 3 ? lesser(a, b) : greater(a, b);
-}
-
-// Folds v over the block; thread 0 holds the result.
-template <typename T>
-__device__ void block_fold(T (&v)[NB], T (*part)[NB]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-    for (int off = 16; off > 0; off >>= 1)
-      v[k] = fold(k, v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) part[warp][k] = v[k];
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int w = 1; w < WARPS; ++w)
-#pragma unroll
-      for (int k = 0; k < NB; ++k) v[k] = fold(k, v[k], part[w][k]);
-}
-
-template <typename T>
-__device__ inline void identities(T (&v)[NB]) {
-#pragma unroll
-  for (int k = 0; k < NB; ++k) v[k] = k < 3 ? pos_inf<T>() : -pos_inf<T>();
-}
-
-// partial[b * 8 + k]: block b's fold of value k. gridDim.x is a multiple
-// of 3, so thread g reads axis g % 3 of the flat centres at every stride.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bounds_partial_kernel(const T* __restrict__ coords,
-                          const T* __restrict__ radii, long long n,
-                          T* __restrict__ partial) {
-  __shared__ T part[WARPS][NB];
-  const long long g = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const int axis = static_cast<int>(g % 3);
-  T lo = pos_inf<T>(), hi = -pos_inf<T>(), r = -pos_inf<T>();
-  for (long long j = g; j < 3 * n; j += stride) {
-    const T c = coords[j];
-    lo = lesser(lo, c);
-    hi = greater(hi, c);
-  }
-  for (long long j = g; j < n; j += stride) r = greater(r, radii[j]);
-  T v[NB];
-  identities(v);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    if (a == axis) {
-      v[a] = lo;
-      v[3 + a] = hi;
-    }
-  v[6] = r;
-  block_fold(v, part);
-  if (threadIdx.x == 0)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) partial[blockIdx.x * 8 + k] = v[k];
-}
-
-// params[0..2] = lo, params[3..5] = the cell size s; *ok = 1.
+// One block: params[0..2] = lo, params[3..5] = the cell size s; *ok = 1.
+// gd arrives as an argument: no constant from the host.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     bounds_final_kernel(const T* __restrict__ partial, int blocks, int gd,
                         T* __restrict__ params, unsigned char* ok) {
-  __shared__ T part[WARPS][NB];
   T v[NB];
-  identities(v);
-  for (int b = threadIdx.x; b < blocks; b += THREADS)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) v[k] = fold(k, v[k], partial[b * 8 + k]);
-  block_fold(v, part);
+  fold_partials(partial, blocks, v);
   if (threadIdx.x != 0) return;
   const T two_r = T(2) * v[6];
   for (int a = 0; a < 3; ++a) {
@@ -267,19 +140,14 @@ __global__ void __launch_bounds__(THREADS)
                   int* __restrict__ starts) {
   const unsigned c = blockIdx.x * THREADS + threadIdx.x;
   if (c > cells) return;
-  unsigned lo = 0, hi = static_cast<unsigned>(n);
-  while (lo < hi) {
-    const unsigned mid = (lo + hi) >> 1;
-    if (keys[mid] < c)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  starts[c] = static_cast<int>(lo);
+  starts[c] = static_cast<int>(lower_bound<unsigned>(keys, 0, n, c));
 }
 
-// A warp a padded cell: its M rows, its ids (int64) at their sorted
-// places, ok cleared on overflow. starts null: no spheres.
+// A warp a padded cell writes the cell's M rows as one contiguous run, 16
+// bytes a lane (two lanes a float row, four a double row): the first
+// min(count, M) sorted spheres, their records gathered by id, then +inf
+// rows; halo cells +inf only. It also writes the cell's ids (int64) at
+// their sorted places and clears ok on overflow. starts null: no spheres.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     fill_kernel(const Sphere<T>* __restrict__ spheres,
@@ -321,47 +189,25 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The bits a key can hold, at least 1.
 int key_bits(int gd) {
-  const unsigned long long top =
-      static_cast<unsigned long long>(gd) * gd * gd - 1;
-  int bits = 1;
-  while (bits < 64 && (top >> bits)) ++bits;
-  return bits;
+  return std::max(
+      1, bit_length(static_cast<unsigned long long>(gd) * gd * gd - 1));
 }
 
-// The workspace's parts, as byte offsets, and cub's temp storage size.
-struct Layout {
-  long long partial, params, keys[2], ids[2], spheres, starts, temp, end;
-  size_t temp_bytes;
+// The workspace's parts, as byte offsets.
+struct Layout : Workspace {
+  long long partial, params, spheres, starts;
 };
-
-long long align_up(long long x) { return (x + ALIGN - 1) / ALIGN * ALIGN; }
 
 cudaError_t layout(long long n, int gd, int f64, Layout* l) {
   const long long cells = static_cast<long long>(gd) * gd * gd;
-  long long off = 0;
-  auto take = [&off](long long bytes) {
-    const long long at = off;
-    off += align_up(bytes);
-    return at;
-  };
-  l->partial = take(BOUNDS_BLOCKS * 8 * sizeof(double));
-  l->params = take(8 * sizeof(double));
-  for (int b = 0; b < 2; ++b) l->keys[b] = take(4 * n);
-  for (int b = 0; b < 2; ++b) l->ids[b] = take(4 * n);
-  l->spheres = take((f64 ? 32 : 16) * n);
-  l->starts = take(4 * (cells + 1));
-  l->temp_bytes = 0;
-  if (n > 0) {
-    cub::DoubleBuffer<unsigned> keys(nullptr, nullptr), ids(nullptr, nullptr);
-    const cudaError_t err = cub::DeviceRadixSort::SortPairs(
-        nullptr, l->temp_bytes, keys, ids, static_cast<int>(n), 0,
-        key_bits(gd));
-    if (err != cudaSuccess) return err;
-  }
-  l->temp = take(static_cast<long long>(l->temp_bytes));
-  l->end = off;
-  return cudaSuccess;
+  l->partial = l->take(BOUNDS_BLOCKS * 8 * sizeof(double));
+  l->params = l->take(8 * sizeof(double));
+  const cudaError_t err = l->take_sort(n, key_bits(gd));
+  l->spheres = l->take((f64 ? 32 : 16) * n);
+  l->starts = l->take(4 * (cells + 1));
+  return err;
 }
 
 bool valid(long long n, int gd, int M) {
@@ -382,31 +228,21 @@ cudaError_t chain(const T* coords, const T* radii, long long n, int gd,
     cudaError_t err = cudaMemsetAsync(ok, 1, 1, stream);
     if (err != cudaSuccess) return err;
   } else {
-    T* partial = reinterpret_cast<T*>(work + l.partial);
-    T* params = reinterpret_cast<T*>(work + l.params);
-    unsigned* keys[2] = {reinterpret_cast<unsigned*>(work + l.keys[0]),
-                         reinterpret_cast<unsigned*>(work + l.keys[1])};
-    unsigned* idb[2] = {reinterpret_cast<unsigned*>(work + l.ids[0]),
-                        reinterpret_cast<unsigned*>(work + l.ids[1])};
-    int* st = reinterpret_cast<int*>(work + l.starts);
-    spheres = reinterpret_cast<Sphere<T>*>(work + l.spheres);
-    const long long want = (3 * n + THREADS - 1) / THREADS;
-    const int blocks = static_cast<int>(
-        std::min<long long>(BOUNDS_BLOCKS, (want + 2) / 3 * 3));
-    bounds_partial_kernel<T><<<blocks, THREADS, 0, stream>>>(coords, radii, n,
-                                                             partial);
+    T* partial = carved<T>(work, l.partial);
+    T* params = carved<T>(work, l.params);
+    int* st = carved<int>(work, l.starts);
+    spheres = carved<Sphere<T>>(work, l.spheres);
+    const int blocks = bounds_partials(coords, radii, n, partial, stream);
     bounds_final_kernel<T><<<1, THREADS, 0, stream>>>(partial, blocks, gd,
                                                       params, ok);
     keys_kernel<T><<<static_cast<unsigned>((n + THREADS - 1) / THREADS),
-                     THREADS, 0, stream>>>(coords, radii, n, gd, params,
-                                           keys[0], idb[0], spheres);
+                     THREADS, 0, stream>>>(
+        coords, radii, n, gd, params, carved<unsigned>(work, l.keys[0]),
+        carved<unsigned>(work, l.ids[0]), spheres);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    cub::DoubleBuffer<unsigned> dk(keys[0], keys[1]), dv(idb[0], idb[1]);
-    size_t temp_bytes = l.temp_bytes;
-    err = cub::DeviceRadixSort::SortPairs(work + l.temp, temp_bytes, dk, dv,
-                                          static_cast<int>(n), 0, key_bits(gd),
-                                          stream);
+    cub::DoubleBuffer<unsigned> dk, dv;
+    err = l.sort_pairs(work, n, key_bits(gd), stream, &dk, &dv);
     if (err != cudaSuccess) return err;
     const unsigned cells = static_cast<unsigned>(gd) * gd * gd;
     starts_kernel<<<(cells + THREADS) / THREADS, THREADS, 0, stream>>>(

@@ -25,9 +25,8 @@
 // quantized; its window in slab c + dx (dx 0, 1) is the sorted range of
 // keys [(c + dx) << zbits | qlo, ((c + dx) << zbits) + qhi + 1), the self
 // slab's clipped at the chunk start; an empty chunk's windows are (0, 0).
-// Every subtraction, addition, product and division is IEEE and rounded
-// to nearest, stated by intrinsic rather than left to flags (built
-// without --use_fast_math), in the plain path's order.
+// Every subtraction, addition, product and division is rounded as
+// bucket_sort.cuh states, in the plain path's order.
 //
 // What bounds it on the H100. At 16M spheres and gx 1000: the centres and
 // radii, 256 MB, read once; the keys, ids and packed records, 384 MB,
@@ -37,42 +36,15 @@
 // more. The tables read the stream's two z channels and search the keys.
 //
 // What the design does about it. Six kernels and cub's sort in stream
-// order, nothing read back by the host:
-// 1. bounds_kernel: a fixed grid of blocks, a multiple of 3 of them, so
-//    each thread reads one axis of the flat [n, 3] centres, coalesced;
-//    each block writes the min and max of each axis and the largest
-//    radius.
-// 2. scalars_kernel: one block folds the partials into the plan's scalars
-//    and diag_thr, zeroes the maxima and sets ok. gx, zbits and the
-//    capacities arrive as arguments: no constant from the host.
-// 3. keys_kernel: a uint32 key and the uint32 id of each sphere, and its
-//    centre and radius packed into one aligned 16-byte record, so the
-//    stream pass's gather by id reads one sector a sphere.
-// 4. cub::DeviceRadixSort::SortPairs (LSD, stable) on bits [0, zbits +
-//    bit_length(gx - 1)) only, the bits a key can hold: 4 digit passes at
-//    gx 1000 where an int64 key takes 8.
-// 5. starts_kernel: each slab's first sorted index, a thread and a binary
-//    search a slab.
-// 6. stream_kernel: a thread a stream lane writes its eight channels, so a
-//    warp's stores to a channel are 128 contiguous bytes; the lanes past n
-//    are +inf. The stream is written once and never filled first.
-// 7. tables_kernel: a warp takes 8 chunks at a time. It takes each chunk's
-//    z range from the stream's zlo and zhi channels, two lanes a thread,
-//    then runs the 8 chunks' 32 threshold searches at once, a binary
-//    search a lane inside the slab's sorted range; the self slab's first
-//    search is one load where the window starts at the chunk start, as it
-//    does wherever no radius is negative. A lane a chunk writes its two
-//    windows as one 8-byte store. Chunk 0 of a slab also gives its size
-//    and rows for max_col, max_slab_rows and ok; a block folds its maxima
-//    and adds them with one atomicMax each.
+// order, nothing read back by the host (* marks bucket_sort.cuh's steps):
+// bounds_partial_kernel*, scalars_kernel, keys_kernel, sort_pairs* on
+// bits [0, zbits + bit_length(gx - 1)) only, the bits a key can hold (4
+// digit passes at gx 1000 where an int64 key takes 8), starts_kernel,
+// stream_kernel, which writes the stream once, never filled first, and
+// tables_kernel, which reads the chunks' z ranges from the stream and
+// runs their threshold searches at once, a binary search a lane.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
-
-#include <cub/device/device_radix_sort.cuh>
-
+#include "bucket_sort.cuh"
 #include "stream.cuh"
 
 namespace {
@@ -80,29 +52,15 @@ namespace {
 using stream::CHUNK;
 using stream::LANE;
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-// Bounds blocks at most: 8 a SM on 132 SMs, and a multiple of 3; the
-// tables kernel's blocks at most, the same.
-constexpr int BOUNDS_BLOCKS = 1056;
-constexpr int TABLE_BLOCKS = 1056;
+// The tables kernel's blocks at most: as many as the bounds kernel's.
+constexpr int TABLE_BLOCKS = BOUNDS_BLOCKS;
 constexpr int CHANNELS = 8;
 // Chunks a warp of the tables kernel takes at a time: one search a lane.
 constexpr int GROUP = 8;
-constexpr long long ALIGN = 256;
-
-__device__ inline float lesser(float a, float b) { return b < a ? b : a; }
-__device__ inline float greater(float a, float b) { return b > a ? b : a; }
-__device__ inline float pos_inf() { return __int_as_float(0x7f800000); }
 
 // The plan's scalars, made on the card by scalars_kernel.
 struct Scalars {
   float lo_x, lo_z, sx, zscale, zhi_scene, r_max;
-};
-
-// A sphere's centre and radius, one aligned 16-byte load.
-struct alignas(16) Sphere {
-  float x, y, z, r;
 };
 
 // min(trunc(clamp((z - lo) * scale, 0, 2^32)), zmax): the plain path's
@@ -115,82 +73,16 @@ __device__ inline unsigned quantize(float z, float lo, float scale,
   return t < zmax ? static_cast<unsigned>(t) : zmax;
 }
 
-// The bounds' seven values: lo[3] (min), hi[3] (max), r_max (max).
-constexpr int NB = 7;
-
-__device__ inline float fold(int k, float a, float b) {
-  return k < 3 ? lesser(a, b) : greater(a, b);
-}
-
-// Folds v over the block; thread 0 holds the result.
-__device__ void block_fold(float (&v)[NB], float (*part)[NB]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-    for (int off = 16; off > 0; off >>= 1)
-      v[k] = fold(k, v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) part[warp][k] = v[k];
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int w = 1; w < WARPS; ++w)
-#pragma unroll
-      for (int k = 0; k < NB; ++k) v[k] = fold(k, v[k], part[w][k]);
-}
-
-__device__ inline void identities(float (&v)[NB]) {
-#pragma unroll
-  for (int k = 0; k < NB; ++k) v[k] = k < 3 ? pos_inf() : -pos_inf();
-}
-
-// partial[b * 8 + k]: block b's fold of value k. gridDim.x is a multiple
-// of 3, so thread g reads axis g % 3 of the flat centres at every stride.
-__global__ void __launch_bounds__(THREADS)
-    bounds_kernel(const float* __restrict__ coords,
-                  const float* __restrict__ radii, long long n,
-                  float* __restrict__ partial) {
-  __shared__ float part[WARPS][NB];
-  const long long g = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const int axis = static_cast<int>(g % 3);
-  float lo = pos_inf(), hi = -pos_inf(), r = -pos_inf();
-  for (long long j = g; j < 3 * n; j += stride) {
-    const float c = coords[j];
-    lo = lesser(lo, c);
-    hi = greater(hi, c);
-  }
-  for (long long j = g; j < n; j += stride) r = greater(r, radii[j]);
-  float v[NB];
-  identities(v);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    if (a == axis) {
-      v[a] = lo;
-      v[3 + a] = hi;
-    }
-  v[6] = r;
-  block_fold(v, part);
-  if (threadIdx.x == 0)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) partial[blockIdx.x * 8 + k] = v[k];
-}
-
-// The plan's scalars and diag_thr from the partials; maxima[0..2] = 0,
-// *ok = 1.
+// One block: the plan's scalars and diag_thr from the partials;
+// maxima[0..2] = 0, *ok = 1. gx, zbits and the capacities arrive as
+// arguments: no constant from the host.
 __global__ void __launch_bounds__(THREADS)
     scalars_kernel(const float* __restrict__ partial, int blocks, int gx,
                    int zbits, Scalars* __restrict__ s,
                    float* __restrict__ diag_thr, int* __restrict__ maxima,
                    unsigned char* ok) {
-  __shared__ float part[WARPS][NB];
   float v[NB];
-  identities(v);
-  for (int b = threadIdx.x; b < blocks; b += THREADS)
-#pragma unroll
-    for (int k = 0; k < NB; ++k) v[k] = fold(k, v[k], partial[b * 8 + k]);
-  block_fold(v, part);
+  fold_partials(partial, blocks, v);
   if (threadIdx.x != 0) return;
   const float lo_x = v[0], lo_z = v[2], hi_x = v[3], hi_z = v[5];
   const float r_max = v[6];
@@ -218,7 +110,7 @@ __global__ void __launch_bounds__(THREADS)
                 const float* __restrict__ radii, long long n, int gx,
                 int zbits, const Scalars* __restrict__ s,
                 unsigned* __restrict__ keys, unsigned* __restrict__ ids,
-                Sphere* __restrict__ spheres) {
+                Sphere<float>* __restrict__ spheres) {
   const long long i = static_cast<long long>(blockIdx.x) * THREADS +
                       threadIdx.x;
   if (i >= n) return;
@@ -229,21 +121,7 @@ __global__ void __launch_bounds__(THREADS)
   keys[i] = (static_cast<unsigned>(col) << zbits) |
             quantize(z, p.lo_z, p.zscale, (1u << zbits) - 1);
   ids[i] = static_cast<unsigned>(i);
-  spheres[i] = Sphere{x, y, z, radii[i]};
-}
-
-// First index in [lo, hi) of the sorted keys at or above target, else hi.
-__device__ inline long long lower_bound(const unsigned* __restrict__ keys,
-                                        long long lo, long long hi,
-                                        unsigned long long target) {
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (keys[mid] < target)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
+  spheres[i] = Sphere<float>{x, y, z, radii[i]};
 }
 
 // starts[b] = the first sorted index of slab b, b in [0, gx + 2).
@@ -252,14 +130,15 @@ __global__ void __launch_bounds__(THREADS)
                   int zbits, int* __restrict__ starts) {
   const int b = blockIdx.x * THREADS + threadIdx.x;
   if (b >= gx + 2) return;
-  starts[b] = static_cast<int>(
-      lower_bound(keys, 0, n, static_cast<unsigned long long>(b) << zbits));
+  starts[b] = static_cast<int>(lower_bound<long long>(
+      keys, 0, n, static_cast<unsigned long long>(b) << zbits));
 }
 
 // Lane p of the stream, p in [0, rows * 128): sorted sphere p's eight
-// channels, or +inf past n.
+// channels, or +inf past n; a warp's stores to a channel are 128
+// contiguous bytes.
 __global__ void __launch_bounds__(THREADS)
-    stream_kernel(const Sphere* __restrict__ spheres,
+    stream_kernel(const Sphere<float>* __restrict__ spheres,
                   const unsigned* __restrict__ keys,
                   const unsigned* __restrict__ ids, long long n,
                   long long lanes, int zbits, float* __restrict__ out) {
@@ -269,7 +148,7 @@ __global__ void __launch_bounds__(THREADS)
   float v[CHANNELS];
   if (p < n) {
     const unsigned id = ids[p];
-    const Sphere b = spheres[id];
+    const Sphere<float> b = spheres[id];
     v[0] = __fsub_rn(b.x, b.r);
     v[1] = __fsub_rn(b.y, b.r);
     v[2] = __fsub_rn(b.z, b.r);
@@ -280,7 +159,7 @@ __global__ void __launch_bounds__(THREADS)
     v[7] = __uint2float_rn(keys[p] >> zbits);
   } else {
 #pragma unroll
-    for (int c = 0; c < CHANNELS; ++c) v[c] = pos_inf();
+    for (int c = 0; c < CHANNELS; ++c) v[c] = pos_inf<float>();
   }
   float* at = out + (p / LANE) * (CHANNELS * LANE) + p % LANE;
 #pragma unroll
@@ -288,10 +167,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // A warp takes GROUP chunks t = c * mc + k at a time: their z ranges one
-// after the other, then their 4 * GROUP threshold searches at once, lane
-// 4j + e the search e of chunk j; lane 4j writes chunk j's windows into w0
-// / wcap [gx, mc, 2] as one 8-byte store each. Chunk 0 of each slab also
-// gives its size and rows. maxima: rows_rolled, max_col, max_slab_rows.
+// after the other, from the stream's zlo and zhi channels, two lanes a
+// thread; then their 4 * GROUP threshold searches at once, lane 4j + e
+// the search e of chunk j inside its slab's sorted range; lane 4j writes
+// chunk j's windows into w0 / wcap [gx, mc, 2] as one 8-byte store each.
+// The self slab's first search is one load where the window starts at the
+// chunk start, as it does wherever no radius is negative. Chunk 0 of each
+// slab also gives its size and rows; a block folds its maxima
+// (rows_rolled, max_col, max_slab_rows) into one atomicMax each.
 __global__ void __launch_bounds__(THREADS)
     tables_kernel(const float* __restrict__ stream,
                   const unsigned* __restrict__ keys,
@@ -311,7 +194,7 @@ __global__ void __launch_bounds__(THREADS)
                       GROUP;
        t0 < chunks; t0 += static_cast<long long>(gridDim.x) * WARPS * GROUP) {
     // The z range of chunk t0 + mine, from the warp's pass over each chunk.
-    float lo = pos_inf(), hi = -pos_inf();
+    float lo = pos_inf<float>(), hi = -pos_inf<float>();
     for (int j = 0; j < GROUP && t0 + j < chunks; ++j) {
       const int c = static_cast<int>((t0 + j) / mc);
       const int k = static_cast<int>((t0 + j) % mc);
@@ -325,7 +208,7 @@ __global__ void __launch_bounds__(THREADS)
           *ok = 0;
       }
       const long long g0 = s0 + static_cast<long long>(CHUNK) * k;
-      float zlo = pos_inf(), zhi = -pos_inf();
+      float zlo = pos_inf<float>(), zhi = -pos_inf<float>();
 #pragma unroll
       for (int h = 0; h < CHUNK; h += 32)
         if (g0 + h + lane < s1) {
@@ -365,10 +248,11 @@ __global__ void __launch_bounds__(THREADS)
         // starts past it only where the chunk's first key is below the
         // threshold.
         at = keys[g0] >= target ? g0
-                                : lower_bound(keys, g0 + 1, starts[c + 1],
-                                              target);
+                                : lower_bound<long long>(
+                                      keys, g0 + 1, starts[c + 1], target);
       else
-        at = lower_bound(keys, starts[b], starts[b + 1], target);
+        at = lower_bound<long long>(keys, starts[b], starts[b + 1],
+                                    target);
     }
     const long long end_a = __shfl_down_sync(0xffffffffu, at, 1);
     const long long wb = __shfl_down_sync(0xffffffffu, at, 2);
@@ -396,41 +280,19 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // The bits a key can hold: zbits of z and bit_length(gx - 1) of slab.
-int key_bits(int gx, int zbits) {
-  int bits = zbits;
-  for (unsigned top = static_cast<unsigned>(gx - 1); top; top >>= 1) ++bits;
-  return bits;
-}
+int key_bits(int gx, int zbits) { return zbits + bit_length(gx - 1); }
 
-// The workspace's parts, as byte offsets, and cub's temp storage size.
-struct Layout {
-  long long partial, scalars, keys[2], ids[2], spheres, temp, end;
-  size_t temp_bytes;
+// The workspace's parts, as byte offsets.
+struct Layout : Workspace {
+  long long partial, scalars, spheres;
 };
 
-long long align_up(long long x) { return (x + ALIGN - 1) / ALIGN * ALIGN; }
-
 cudaError_t layout(long long n, int gx, int zbits, Layout* l) {
-  long long off = 0;
-  auto take = [&off](long long bytes) {
-    const long long at = off;
-    off += align_up(bytes);
-    return at;
-  };
-  l->partial = take(BOUNDS_BLOCKS * 8 * sizeof(float));
-  l->scalars = take(sizeof(Scalars));
-  for (int b = 0; b < 2; ++b) l->keys[b] = take(4 * n);
-  for (int b = 0; b < 2; ++b) l->ids[b] = take(4 * n);
-  l->spheres = take(sizeof(Sphere) * n);
-  l->temp_bytes = 0;
-  cub::DoubleBuffer<unsigned> keys(nullptr, nullptr), ids(nullptr, nullptr);
-  const cudaError_t err = cub::DeviceRadixSort::SortPairs(
-      nullptr, l->temp_bytes, keys, ids, static_cast<int>(n), 0,
-      key_bits(gx, zbits));
-  if (err != cudaSuccess) return err;
-  l->temp = take(static_cast<long long>(l->temp_bytes));
-  l->end = off;
-  return cudaSuccess;
+  l->partial = l->take(BOUNDS_BLOCKS * 8 * sizeof(float));
+  l->scalars = l->take(sizeof(Scalars));
+  const cudaError_t err = l->take_sort(n, key_bits(gx, zbits));
+  l->spheres = l->take(sizeof(Sphere<float>) * n);
+  return err;
 }
 
 // n in [1, 2^31), gx in [1, 4096], and every key col << zbits | zq, col <
@@ -482,36 +344,25 @@ extern "C" int slab_plan_launch(const void* coords, const void* radii,
   if (work_bytes < l.end) return static_cast<int>(cudaErrorInvalidValue);
   char* w = static_cast<char*>(work);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  float* partial = reinterpret_cast<float*>(w + l.partial);
-  Scalars* scalars = reinterpret_cast<Scalars*>(w + l.scalars);
-  unsigned* keys[2] = {reinterpret_cast<unsigned*>(w + l.keys[0]),
-                       reinterpret_cast<unsigned*>(w + l.keys[1])};
-  unsigned* ids[2] = {reinterpret_cast<unsigned*>(w + l.ids[0]),
-                      reinterpret_cast<unsigned*>(w + l.ids[1])};
-  Sphere* spheres = reinterpret_cast<Sphere*>(w + l.spheres);
+  float* partial = carved<float>(w, l.partial);
+  Scalars* scalars = carved<Scalars>(w, l.scalars);
+  Sphere<float>* spheres = carved<Sphere<float>>(w, l.spheres);
   int* most = static_cast<int*>(maxima);
   unsigned char* okp = static_cast<unsigned char*>(ok);
-
-  const long long want = (3 * n + THREADS - 1) / THREADS;
-  const int blocks =
-      static_cast<int>(std::min<long long>(BOUNDS_BLOCKS, (want + 2) / 3 * 3));
-  bounds_kernel<<<blocks, THREADS, 0, cs>>>(
-      static_cast<const float*>(coords), static_cast<const float*>(radii), n,
-      partial);
+  const float* c = static_cast<const float*>(coords);
+  const float* r = static_cast<const float*>(radii);
+  const int blocks = bounds_partials(c, r, n, partial, cs);
   scalars_kernel<<<1, THREADS, 0, cs>>>(partial, blocks, gx, zbits, scalars,
                                         static_cast<float*>(diag_thr), most,
                                         okp);
   keys_kernel<<<static_cast<unsigned>((n + THREADS - 1) / THREADS), THREADS,
-                0, cs>>>(static_cast<const float*>(coords),
-                         static_cast<const float*>(radii), n, gx, zbits,
-                         scalars, keys[0], ids[0], spheres);
+                0, cs>>>(c, r, n, gx, zbits, scalars,
+                         carved<unsigned>(w, l.keys[0]),
+                         carved<unsigned>(w, l.ids[0]), spheres);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cub::DoubleBuffer<unsigned> dk(keys[0], keys[1]), dv(ids[0], ids[1]);
-  size_t temp_bytes = l.temp_bytes;
-  err = cub::DeviceRadixSort::SortPairs(w + l.temp, temp_bytes, dk, dv,
-                                        static_cast<int>(n), 0,
-                                        key_bits(gx, zbits), cs);
+  cub::DoubleBuffer<unsigned> dk, dv;
+  err = l.sort_pairs(w, n, key_bits(gx, zbits), cs, &dk, &dv);
   if (err != cudaSuccess) return static_cast<int>(err);
   int* st = static_cast<int*>(starts);
   starts_kernel<<<(gx + 2 + THREADS - 1) / THREADS, THREADS, 0, cs>>>(

@@ -32,7 +32,7 @@
 // pair may span two stream rows), and a thread stores its two words of
 // each half with one 8-byte store. On an H100 8-byte loads where w is
 // even were no faster, and the count's walk of stream-aligned segments,
-// storing each word on its own, 13-17% slower (masks_variants.py). The
+// storing each word on its own, 13-17% slower. The
 // TPU kernel's DMA ring, quad chunk pairing, lane rolls and [aw*64, 6]
 // transpose have no use here and are gone.
 //
@@ -56,8 +56,8 @@
 // the same staged columns. On an H100 at 1M and d_max 48 this takes
 // 0.024 ms: its staging alone (d_max 0) 0.011, without the votes 0.028
 // and 0.027, with the loads a channel at a time 0.029, DIAG_K 4 within 2%
-// and 16 0.033 (154 registers), six float compares 0.028
-// (emit_diag_variants.py). The TPU kernel's block pairing (a 32-row block
+// and 16 0.033 (154 registers), six float compares 0.028. The TPU
+// kernel's block pairing (a 32-row block
 // beside its successor), lane rolls and static unroll over the diagonals
 // have no use here and are gone; its skipped last block is kept as the
 // domain's end. Totals reduce per block and add one integer atomic each,

@@ -46,7 +46,7 @@
 // writes zeros and loads nothing. The self offset's j > i and the window
 // are one mask a word. (On an H100, six compares in place of the sign-bit
 // test, the rest the same, are 1-4% slower on the dense, 1M and power-law
-// plans: masks_variants.py times both. Four lanes a thread, 16-byte
+// plans. Four lanes a thread, 16-byte
 // loads and stores and a 128-lane union, was as fast on the dense plan
 // and slower on the 1M and power-law plans; one lane a thread slower on
 // the dense plan.)

@@ -149,6 +149,29 @@ def launch_on(stream, name, *args):
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
+@functools.lru_cache(maxsize=128)
+def workspace_bytes(name, *args):
+    """Device bytes the workspace query ``name`` (``grid_bins_workspace``
+    or ``slab_plan_workspace``) reports for ``args``: the chain's key and
+    id double buffers, packed spheres, bounds partials, its own parts and
+    cub's temporary storage (``csrc/bucket_sort.cuh``)."""
+    out = ctypes.c_longlong()
+    err = getattr(library(), name)(*args, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return out.value
+
+
+def spheres(coords, radii):
+    """``(coords, radii, n)``, contiguous, once coords is [n, 3] and radii
+    [n]; raises ValueError otherwise."""
+    n = coords.shape[0]
+    if tuple(coords.shape) != (n, 3) or tuple(radii.shape) != (n,):
+        raise ValueError(f"coords must be [n, 3] and radii [n], got "
+                         f"{tuple(coords.shape)} and {tuple(radii.shape)}")
+    return coords.contiguous(), radii.contiguous(), n
+
+
 def require(t, dtype, name):
     """Check that ``t`` is a contiguous CUDA tensor of ``dtype``."""
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():

@@ -5,12 +5,11 @@ starts and window tables.
 Replaces no TPU kernel: the JAX package builds the plan with XLA ops
 (collision_tpu/slabs.py: plan_slabs). On a CUDA tensor the wrapper
 enqueues the chain of ``csrc/slab_plan.cu`` on the current stream (one
-entry point, six kernels and cub's radix sort, no host sync); on a CPU
-tensor it runs ``slabs.plan_slabs_plain``, the same plan bit for bit.
+entry point, six kernels and cub's radix sort, no host sync; its bounds,
+packing, sort and slab starts are ``csrc/bucket_sort.cuh``'s, shared with
+the grid bins); on a CPU tensor it runs ``slabs.plan_slabs_plain``, the
+same plan bit for bit.
 """
-
-import ctypes
-import functools
 
 import torch
 
@@ -21,37 +20,20 @@ from . import _build
 __all__ = ["build_plan", "build_plan_plain"]
 
 
-@functools.lru_cache(maxsize=64)
-def workspace_bytes(n, gx):
-    """Device bytes the chain's workspace takes for ``n`` spheres at
-    ``gx`` slabs: key and id double buffers, the packed centres and radii,
-    the bounds' partials, the plan's scalars and cub's temporary
-    storage."""
-    out = ctypes.c_longlong()
-    err = _build.library().slab_plan_workspace(n, gx, _xbits_z(gx),
-                                               ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"slab_plan_workspace: CUDA error {err}")
-    return out.value
-
-
 def build_plan(coords, radii, gx, col_capacity, slab_rows):
     """The :class:`slabs.SlabPlan` that ``slabs.plan_slabs`` returns."""
     if not coords.is_cuda:
         return build_plan_plain(coords, radii, gx, col_capacity, slab_rows)
-    n = coords.shape[0]
     if coords.dtype != torch.float32 or radii.dtype != torch.float32:
         raise ValueError(f"coords and radii must be float32, got "
                          f"{coords.dtype} and {radii.dtype}")
-    if tuple(coords.shape) != (n, 3) or tuple(radii.shape) != (n,):
-        raise ValueError(f"coords must be [n, 3] and radii [n], got "
-                         f"{tuple(coords.shape)} and {tuple(radii.shape)}")
+    coords, radii, n = _build.spheres(coords, radii)
     if not 1 <= n < 2 ** 31 or not 1 <= gx <= 4096 or col_capacity < 1:
         raise ValueError(f"plan_slabs takes 1 to 2^31 - 1 spheres, gx in "
                          f"[1, 4096] and a positive col_capacity, got n={n}, "
                          f"gx={gx}, col_capacity={col_capacity}")
-    coords, radii = coords.contiguous(), radii.contiguous()
     dev = coords.device
+    zbits = _xbits_z(gx)
     mc = -(-col_capacity // CHUNK)
     rows = stream_rows(n, slab_rows)
     stream = torch.empty((rows, 8, LANE), dtype=torch.float32, device=dev)
@@ -62,10 +44,11 @@ def build_plan(coords, radii, gx, col_capacity, slab_rows):
     maxima = torch.empty((3,), dtype=torch.int32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     diag_thr = torch.empty((1,), dtype=torch.float32, device=dev)
-    work = torch.empty((workspace_bytes(n, gx),), dtype=torch.uint8,
-                       device=dev)
+    work = torch.empty(
+        (_build.workspace_bytes("slab_plan_workspace", n, gx, zbits),),
+        dtype=torch.uint8, device=dev)
     _build.launch("slab_plan_launch", coords.data_ptr(), radii.data_ptr(), n,
-                  gx, _xbits_z(gx), mc, col_capacity, slab_rows, rows,
+                  gx, zbits, mc, col_capacity, slab_rows, rows,
                   work.data_ptr(), work.numel(), stream.data_ptr(),
                   starts.data_ptr(), w0.data_ptr(), wcap.data_ptr(),
                   maxima.data_ptr(), ok.data_ptr(), diag_thr.data_ptr())
