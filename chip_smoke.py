@@ -259,7 +259,7 @@ def plain_kernels():
              (compact, "compact_mask"), (sweep, "sweep_count"),
              (sweep, "sweep_masks"), (bigpass, "big_count_only"),
              (bigpass, "big_pairs"), (pair_emit, "emit_pairs"),
-             (pair_emit, "row_popcounts"),
+             (pair_emit, "emit_pair_buffer"), (pair_emit, "row_popcounts"),
              (halo, "halo_pairs"), (batched, "batched_count"),
              (emit, "halo_tile_counts"), (emit, "emit_pairs")]
     saved = [getattr(mod, name) for mod, name in swaps]
@@ -792,21 +792,23 @@ def dense_fill(dev, record, launches):
                                sweep.NOFF, route["rpw"], rolled=False)
     ids = fill._sorted_ids(plan)
     args = (B, ws, cb, ids, DENSE_CAPACITY, rp)
-    got = pair_emit.emit_pairs(*args)
-    want = pair_emit.emit_pairs_plain(*args)
-    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    check(torch.equal(got[0], pairs[:, 0]) and torch.equal(got[1], pairs[:, 1]),
+    got = pair_emit.emit_pair_buffer(*args)
+    want = pair_emit.emit_pair_buffer_plain(*args)
+    err = max_abs_err(got, want)
+    check(got.shape == (DENSE_CAPACITY, 2) and got.is_contiguous(),
+          f"dense: pair_emit's buffer {tuple(got.shape)}, contiguous")
+    check(torch.equal(got, pairs),
           "dense: pair_emit at the exact plan == the Collider's pairs")
     del got, want, pairs
     launches["pair_emit"] = run["pair_emit"]
-    # Bytes: every mask word read once, two int64 ids written a slot,
+    # Bytes: every mask word read once, one 16-byte (a, b) slot written,
     # sentinels included; beside it, the bound of an emission that writes
     # two uint32 ids a pair and no sentinels.
     uint32_bound_ms = bound(nbytes(B) + 8 * int(rp.sum()), 0)[0]
     record("pair_emit", "collision_tpu_torch/csrc/pair_emit.cu",
            "collision_tpu/kernels/pair_emit.py:217", err,
-           lambda: pair_emit.emit_pairs(*args),
-           lambda: pair_emit.emit_pairs_plain(*args),
+           lambda: pair_emit.emit_pair_buffer(*args),
+           lambda: pair_emit.emit_pair_buffer_plain(*args),
            nbytes(B) + 16 * DENSE_CAPACITY, 0, plain_batch=1, plain_reps=1)
     phase("dense_fill", n=DENSE_N, r_max=DENSE_R, capacity=DENSE_CAPACITY,
           count=int(count), count_only=int(count_only), attempts=attempts,

@@ -23,7 +23,7 @@ import torch
 
 from . import tracing
 from .columns import CHUNK, _scalar, default_column_config, plan_columns
-from .fill import candidate_count, mask_fill, run_fill, slab_mask_fill
+from .fill import candidate_count, column_fill_pairs, run_fill, slab_fill_pairs
 from .grid import build_grid, tile_counts_plain
 from .hetero import _big_indices, default_nb, hetero_collide
 from .kernels import batched, emit, halo
@@ -286,17 +286,15 @@ def collide(coords, radii, capacity, stack_depth=STACK_DEPTH, method="auto",
 def _column_collide(coords, radii, capacity, gxy, col_capacity, slab_rows,
                     rpw, lo_scene, hi_scene):
     """Column-engine frame: the rolled count sweep, or the aligned masks
-    kernel plus the emission."""
+    kernel plus the emission, which writes the result's pair buffer."""
+    plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
     if capacity == 0:
-        plan = plan_columns(coords, radii, gxy, col_capacity, slab_rows)
         with tracing.span("ct.column.sweep"):
             count, no_wrap = sweep_count_guarded(plan, rpw=rpw, rolled=True)
         ok = plan.ok & (plan.rows_rolled <= rpw) & no_wrap
         return CollisionResult(count, None, lo_scene, hi_scene, ok)
-    ida, idb, total, ok = mask_fill(
-        coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=rpw)
-    return CollisionResult(total, torch.stack([ida, idb], dim=1), lo_scene,
-                           hi_scene, ok)
+    pairs, total, ok = column_fill_pairs(plan, capacity, rpw)
+    return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
 
 
 def _slab_collide(coords, radii, capacity, gx, col_capacity, slab_rows,
@@ -304,15 +302,13 @@ def _slab_collide(coords, radii, capacity, gx, col_capacity, slab_rows,
     """Slab-engine frame: the dual-dispatch count (one-row sweep kernel +
     residual jobs) or the dual-dispatch fill (one-row masks kernel +
     residual pairs + emission)."""
+    plan = plan_slabs(coords, radii, gx, col_capacity, slab_rows)
     if capacity == 0:
-        plan = plan_slabs(coords, radii, gx, col_capacity, slab_rows)
         count, d_ok = slab_count_dual(plan)
         return CollisionResult(count, None, lo_scene, hi_scene,
                                plan.ok & d_ok)
-    ida, idb, total, ok = slab_mask_fill(
-        coords, radii, capacity, gx, col_capacity, slab_rows)
-    return CollisionResult(total, torch.stack([ida, idb], dim=1), lo_scene,
-                           hi_scene, ok)
+    pairs, total, ok = slab_fill_pairs(plan, capacity)
+    return CollisionResult(total, pairs, lo_scene, hi_scene, ok)
 
 
 def _hetero_collide(coords, radii, capacity, nb, rpw, gxy, col_capacity,

@@ -13,14 +13,17 @@ offset-minor, ascending-j order. The JAX package's stride pyramid
 ``searchsorted`` finds each candidate's run, and the candidate pass is
 chunked only to bound memory.
 
-The column fill (``mask_fill``, ``column_fill_from_plan``) tests every
-chunk against ``rpw`` aligned rows of its 5 windows. The slab fill
-(``slab_mask_fill``, ``slab_fill_from_plan``) tests every chunk against
-one rolled row of its 2 windows (two rows in the hetero engine's slab
-pass), and the rare window remainders past them go to
-``slabs.residual_pairs``, appended after the mask pairs. The emission
-decodes the mask words into pairs in (mask row, lane, bit) order. Ids
-are uint32 values held in int64; unused slots hold 0xFFFFFFFF.
+The column fill (``column_fill_pairs``) tests every chunk against
+``rpw`` aligned rows of its 5 windows. The slab fill
+(``slab_fill_pairs``) tests every chunk against one rolled row of its 2
+windows (two rows in the hetero engine's slab pass), and the rare window
+remainders past them go to ``slabs.residual_pairs``, appended after the
+mask pairs. The emission decodes the mask words into pairs in (mask row,
+lane, bit) order. Ids are uint32 values held in int64; unused slots hold
+0xFFFFFFFF. Both fills return the int64 ``[capacity, 2]`` pair buffer
+that a collision result holds; the JAX package's forms (``mask_fill``,
+``column_fill_from_plan``, ``slab_mask_fill``, ``slab_fill_from_plan``)
+return its two columns, as views.
 
 Two emitters, as in the JAX package (``_pick_emit``): up to
 ``BIG_FILL_THRESHOLD`` slots the sparse two-level compaction of
@@ -166,8 +169,8 @@ BIG_FILL_THRESHOLD = 1 << 21
 
 def _mask_fill_emit(B, rp, starts, w0_flat, mc, ids_flat, capacity, total,
                     noff, rpw, rolled):
-    """(ida, idb, trunc_safe): the first ``capacity`` pairs of packed
-    sweep masks, in (mask row, lane, bit) order.
+    """(pairs int64[capacity, 2], trunc_safe): the first ``capacity``
+    pairs of packed sweep masks, in (mask row, lane, bit) order.
 
     The masks are the column engine's (``noff=5`` offsets, ``rpw``
     aligned rows: lane l of window row r is sorted sphere
@@ -247,7 +250,7 @@ def _mask_fill_emit(B, rp, starts, w0_flat, mc, ids_flat, capacity, total,
     ida = ids_flat[torch.clamp(i, 0, nsort - 1)]
     idb = ids_flat[torch.clamp(j, 0, nsort - 1)]
     live = q < torch.clamp_max(total, capacity)
-    return (torch.where(live, ida, NO_PAIR), torch.where(live, idb, NO_PAIR),
+    return (torch.where(live[:, None], torch.stack([ida, idb], 1), NO_PAIR),
             safe_r & safe_w)
 
 
@@ -282,14 +285,15 @@ def _emit_tables(B, starts, w0_flat, mc, noff, rpw, rolled):
 
 def _mask_fill_emit_kernel(B, rp, starts, w0_flat, mc, ids_flat, capacity,
                            total, noff, rpw, rolled):
-    """The pair-emission kernel (``pair_emit.emit_pairs``) over the rows'
-    tables: exact at any capacity, so its ``trunc_safe`` is True.
-    ``total`` is unused: slots past the mask pairs hold 0xFFFFFFFF."""
+    """The pair-emission kernel (``pair_emit.emit_pair_buffer``) over the
+    rows' tables: (pairs, trunc_safe), the kernel's buffer as it is. Exact
+    at any capacity, so ``trunc_safe`` is True. ``total`` is unused:
+    slots past the mask pairs hold 0xFFFFFFFF."""
     wstart_tab, cb_tab = _emit_tables(B, starts, w0_flat, mc, noff, rpw,
                                       rolled)
-    ida, idb = pair_emit.emit_pairs(B, wstart_tab, cb_tab, ids_flat,
-                                    capacity, rp)
-    return ida, idb, torch.ones((), dtype=torch.bool, device=B.device)
+    pairs = pair_emit.emit_pair_buffer(B, wstart_tab, cb_tab, ids_flat,
+                                       capacity, rp)
+    return pairs, torch.ones((), dtype=torch.bool, device=B.device)
 
 
 def _pick_emit(capacity):
@@ -317,11 +321,11 @@ def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows, rpw=2):
     return column_fill_from_plan(plan, capacity, rpw)
 
 
-def column_fill_from_plan(plan, capacity, rpw):
-    """(ida[capacity], idb[capacity], total, ok) from a column plan: the
-    masks kernel at ``rpw`` aligned rows and the emission
-    :func:`_pick_emit` picks. The uniform column fill and the hetero
-    engine's column S-S pass share it.
+def column_fill_pairs(plan, capacity, rpw):
+    """(pairs int64[capacity, 2], total, ok) from a column plan: the masks
+    kernel at ``rpw`` aligned rows and the emission :func:`_pick_emit`
+    picks. The uniform column fill and the hetero engine's column S-S
+    pass share it.
 
     ``total`` is the true int64 pair count even past ``capacity``. ``ok``
     is False when the plan's capacities or ``rpw`` were too small
@@ -335,16 +339,23 @@ def column_fill_from_plan(plan, capacity, rpw):
     total = rp.sum()
     ok = plan.ok & (plan.rows_needed <= rpw) & (total < sweep.INT32_GUARD)
     with tracing.span("ct.column.emit"):
-        ida, idb, trunc_safe = _pick_emit(capacity)(
+        pairs, trunc_safe = _pick_emit(capacity)(
             B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
             _sorted_ids(plan), capacity, total, noff=sweep.NOFF, rpw=rpw,
             rolled=False)
-    return ida, idb, total, ok & trunc_safe
+    return pairs, total, ok & trunc_safe
 
 
-def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
-    """(ida[capacity], idb[capacity], total, ok) from a slab plan: the
-    mask pairs of the masks kernel at ``dual_base`` rolled rows (windows
+def column_fill_from_plan(plan, capacity, rpw):
+    """(ida[capacity], idb[capacity], total, ok): the columns of
+    :func:`column_fill_pairs`, as views."""
+    pairs, total, ok = column_fill_pairs(plan, capacity, rpw)
+    return pairs[:, 0], pairs[:, 1], total, ok
+
+
+def slab_fill_pairs(plan, capacity, dual_base=1, split_ok=False):
+    """(pairs int64[capacity, 2], total, ok) from a slab plan: the mask
+    pairs of the masks kernel at ``dual_base`` rolled rows (windows
     clamped to dual_base*128 lanes), then the residual pairs of the lanes
     past them, truncated at ``capacity``. The uniform slab fill runs one
     row, the hetero engine's slab S-S pass two.
@@ -353,7 +364,7 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     is False when the plan's capacities, the residual job or pair
     capacity or the JAX package's int32 guard were exceeded, or when the
     sparse emission's row cut could have dropped a pair. ``split_ok``
-    returns (ida, idb, total, gx_ok, other_ok) instead: gx_ok is what a
+    returns (pairs, total, gx_ok, other_ok) instead: gx_ok is what a
     finer slab grid can fix (plan and residual capacities), other_ok the
     rest.
     """
@@ -368,7 +379,7 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
     gx_ok = plan.ok & r_ok
     no_wrap = mask_total < sweep.INT32_GUARD
     with tracing.span("ct.slab.emit"):
-        ida, idb, trunc_safe = _pick_emit(capacity)(
+        pairs, trunc_safe = _pick_emit(capacity)(
             B, rp, plan.starts.long(), plan.w0.reshape(-1).long(), plan.mc,
             _sorted_ids(plan), capacity, mask_total, noff=len(SLAB_OFFSETS),
             rpw=dual_base, rolled=True)
@@ -379,11 +390,20 @@ def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
         in_m = q < tm
         qr = torch.clamp(q - tm, 0, rida.shape[0] - 1)
         live = q < torch.clamp_max(total, capacity)
-        ida = torch.where(live, torch.where(in_m, ida, rida[qr]), NO_PAIR)
-        idb = torch.where(live, torch.where(in_m, idb, ridb[qr]), NO_PAIR)
+        rpairs = torch.stack([rida, ridb], 1)[qr]
+        pairs = torch.where(live[:, None],
+                            torch.where(in_m[:, None], pairs, rpairs), NO_PAIR)
     if split_ok:
-        return ida, idb, total, gx_ok, no_wrap & trunc_safe
-    return ida, idb, total, gx_ok & no_wrap & trunc_safe
+        return pairs, total, gx_ok, no_wrap & trunc_safe
+    return pairs, total, gx_ok & no_wrap & trunc_safe
+
+
+def slab_fill_from_plan(plan, capacity, dual_base=1, split_ok=False):
+    """(ida[capacity], idb[capacity], total, ok), or with ``split_ok``
+    (ida, idb, total, gx_ok, other_ok): the columns of
+    :func:`slab_fill_pairs`, as views."""
+    pairs, *rest = slab_fill_pairs(plan, capacity, dual_base, split_ok)
+    return (pairs[:, 0], pairs[:, 1], *rest)
 
 
 def slab_mask_fill(coords, radii, capacity, gx, col_capacity, slab_rows):

@@ -54,9 +54,9 @@ _ARGTYPES = {
     # bigs, c0, c1, n_always, stream, rows, counts, bases, capacity, ida,
     # idb, cuda stream
     "big_emit_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
-    # mask, wstart, cb, ids, nsort, row ends, rows, capacity, ida, idb,
+    # mask, wstart, cb, ids, nsort, row ends, rows, capacity, pairs,
     # cuda stream
-    "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _P],
+    "pair_emit_launch": [_P, _P, _P, _P, _L, _P, _L, _L, _P, _P],
     # mask, rows, counts, cuda stream
     "row_popcount_launch": [_P, _L, _P, _P],
     # bins, gd, M, tile counts, tile_pad, total, cuda stream

@@ -8,13 +8,17 @@ kernel's packed tile masks in their native layout, B[NB, 2*KGT, 128]
 ``ids_flat`` maps sorted positions to original ids. The pairs come out in
 ascending (mask row, lane, bit) order, the first ``capacity`` of them.
 
-On a CUDA tensor :func:`emit_pairs` launches the kernel of
-``csrc/pair_emit.cu``, and :func:`row_popcounts` (the row table the
-emission starts from, which the fills compute anyway) that file's row
-count kernel; on a CPU tensor they run :func:`emit_pairs_plain`, the
-blocked emission of the JAX package's ``fill._mask_fill_emit_big``, and
-:func:`row_popcounts_plain`. The JAX kernel's ``mxu`` and ``nostore``
-variants are TPU perf knobs and are not ported.
+On a CUDA tensor :func:`emit_pair_buffer` launches the kernel of
+``csrc/pair_emit.cu``, which writes the int64 ``[capacity, 2]`` pair
+buffer of a collision result in place, and :func:`row_popcounts` (the
+row table the emission starts from, which the fills compute anyway) that
+file's row count kernel; on a CPU tensor they run
+:func:`emit_pair_buffer_plain` over :func:`emit_pairs_plain`, the blocked
+emission of the JAX package's ``fill._mask_fill_emit_big``, and
+:func:`row_popcounts_plain`. :func:`emit_pairs` keeps the JAX package's
+signature and its ``(ida, idb)`` return: the two columns of that buffer,
+as views. The JAX kernel's ``mxu`` and ``nostore`` variants are TPU perf
+knobs and are not ported.
 
 Ids are uint32 values held in int64 (int32 bit patterns are accepted as
 input); slots past the last pair hold 0xFFFFFFFF.
@@ -150,11 +154,18 @@ def emit_pairs_plain(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None,
     return ida, idb
 
 
-def emit_pairs(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
-    """(ida int64[capacity], idb int64[capacity]): the first
-    min(total, capacity) pairs of the packed masks in ascending (mask
-    row, lane, bit) order, as original ids; the other slots hold
-    0xFFFFFFFF.
+def emit_pair_buffer_plain(B, wstart_tab, cb_tab, ids_flat, capacity,
+                           rp_tab=None):
+    """Plain PyTorch version of :func:`emit_pair_buffer`: the columns of
+    :func:`emit_pairs_plain`, stacked."""
+    return torch.stack(emit_pairs_plain(B, wstart_tab, cb_tab, ids_flat,
+                                        capacity, rp_tab), 1)
+
+
+def emit_pair_buffer(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
+    """pairs int64[capacity, 2], contiguous: the first min(total,
+    capacity) pairs of the packed masks in ascending (mask row, lane, bit)
+    order, as original ids (a, b); the other slots hold 0xFFFFFFFF.
 
     Args:
       B: int32[NB, 2*KGT, 128] packed masks (uint32 words).
@@ -172,14 +183,13 @@ def emit_pairs(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
     such limit.
     """
     if not B.is_cuda:
-        return emit_pairs_plain(B, wstart_tab, cb_tab, ids_flat, capacity,
-                                rp_tab)
+        return emit_pair_buffer_plain(B, wstart_tab, cb_tab, ids_flat,
+                                      capacity, rp_tab)
     ws, cb = _tables(B, wstart_tab, cb_tab)
     dev = B.device
-    ida = torch.empty((capacity,), dtype=torch.int64, device=dev)
-    idb = torch.empty((capacity,), dtype=torch.int64, device=dev)
+    pairs = torch.empty((capacity, 2), dtype=torch.int64, device=dev)
     if not capacity:
-        return ida, idb
+        return pairs
     rows = B.shape[0] * B.shape[1]
     rp = row_popcounts(B) if rp_tab is None else rp_tab.reshape(-1)
     # Each row's end slot: the inclusive scan of the row popcounts, queued
@@ -195,6 +205,14 @@ def emit_pairs(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
         _build.require(cb, torch.int64, "cb_tab"),
         _build.require(ids, torch.int64, "ids"), ids.shape[0],
         _build.require(ends, torch.int64, "row ends"), rows, capacity,
-        ida.data_ptr(), idb.data_ptr())
+        pairs.data_ptr())
     _build.LAUNCHES["pair_emit"] += 1
-    return ida, idb
+    return pairs
+
+
+def emit_pairs(B, wstart_tab, cb_tab, ids_flat, capacity, rp_tab=None):
+    """(ida int64[capacity], idb int64[capacity]): the JAX package's form
+    of :func:`emit_pair_buffer`, whose two columns they are, as views."""
+    pairs = emit_pair_buffer(B, wstart_tab, cb_tab, ids_flat, capacity,
+                             rp_tab)
+    return pairs[:, 0], pairs[:, 1]

@@ -495,8 +495,28 @@ def _emit_inputs(engine, device):
     return B, ws, cb, fill._sorted_ids(plan)[:900]
 
 
-@pytest.mark.parametrize("engine", ["column", "slab"])
-def test_pair_emit_kernel_matches_plain(cuda, engine):
+def _emit_matches(form, want, B, ws, cb, ids, capacity, rp_tab=None):
+    """Whether the kernel's emission at ``capacity`` equals ``want``,
+    ``emit_pairs_plain``'s (ida, idb): its two columns (``form``
+    "columns"), or its [capacity, 2] buffer against their stack (``form``
+    "buffer"), the buffer's dtype, shape and layout checked."""
+    if form == "columns":
+        got = pair_emit.emit_pairs(B, ws, cb, ids, capacity, rp_tab)
+        assert got[0].dtype == got[1].dtype == torch.int64
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = pair_emit.emit_pair_buffer(B, ws, cb, ids, capacity, rp_tab)
+    assert got.dtype == torch.int64 and got.shape == (capacity, 2)
+    assert got.is_contiguous() and got.is_cuda
+    return torch.equal(got, torch.stack(want, 1))
+
+
+@pytest.mark.parametrize("engine, form", [("column", "columns"),
+                                          ("slab", "columns"),
+                                          ("column", "buffer"),
+                                          ("slab", "buffer")],
+                         ids=["column", "slab", "column-buffer",
+                              "slab-buffer"])
+def test_pair_emit_kernel_matches_plain(cuda, engine, form):
     B, ws, cb, ids = _emit_inputs(engine, cuda)
     if engine == "slab":
         # The last windows' rows run past the end of the stream.
@@ -510,9 +530,8 @@ def test_pair_emit_kernel_matches_plain(cuda, engine):
                   int(cum[row - 1]))     # rows from `row` on start past it
     before = _build.LAUNCHES["pair_emit"]
     for capacity in capacities:
-        got = pair_emit.emit_pairs(B, ws, cb, ids, capacity)
         want = pair_emit.emit_pairs_plain(B, ws, cb, ids, capacity)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert _emit_matches(form, want, B, ws, cb, ids, capacity)
     assert _build.LAUNCHES["pair_emit"] == before + len(capacities)
 
 
@@ -534,7 +553,8 @@ def _rows_of_every_width():
             torch.from_numpy(ws), torch.from_numpy(cb), torch.from_numpy(ids))
 
 
-def test_pair_emit_kernel_rows_of_every_width(cuda):
+@pytest.mark.parametrize("form", ["columns", "buffer"])
+def test_pair_emit_kernel_rows_of_every_width(cuda, form):
     B, ws, cb, ids = (t.to(cuda) for t in _rows_of_every_width())
     rp = pair_emit.row_popcounts(B)
     assert torch.equal(rp, pair_emit.row_popcounts_plain(B))
@@ -549,9 +569,7 @@ def test_pair_emit_kernel_rows_of_every_width(cuda):
     for capacity in capacities:
         want = pair_emit.emit_pairs_plain(B, ws, cb, ids, capacity, rp)
         for rp_tab in (None, rp):
-            got = pair_emit.emit_pairs(B, ws, cb, ids, capacity, rp_tab)
-            assert got[0].dtype == got[1].dtype == torch.int64
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert _emit_matches(form, want, B, ws, cb, ids, capacity, rp_tab)
     # No launch at capacity 0; the row counts only where none are given.
     assert _build.LAUNCHES["pair_emit"] == before["pair_emit"] \
         + 2 * (len(capacities) - 1)
@@ -1097,6 +1115,31 @@ def test_host_syncs_match_the_sync_debug_mode(cuda, name):
     warned = [str(w.message) for w in caught
               if "synchronizing CUDA operation" in str(w.message)]
     assert len(warned) == sum(tracing.HOST_SYNCS.values()) - before
+
+
+def test_dense_route_returns_the_emission_buffer(cuda, monkeypatch):
+    # The dense route's pairs are the buffer the emission kernel wrote,
+    # with no copy between them: one buffer an attempt (auto's column
+    # fill, then the retry's rung), and the last is the result's.
+    buffers = []
+    kernel = pair_emit.emit_pair_buffer
+
+    def spy(*args):
+        pairs = kernel(*args)
+        buffers.append(pairs.data_ptr())
+        return pairs
+
+    run = _sync_frame(*SYNC_ROUTES["collider_dense"], cuda)
+    monkeypatch.setattr(pair_emit, "emit_pair_buffer", spy)
+    before = _build.LAUNCHES["pair_emit"]
+    count, pairs = run()
+    assert _build.LAUNCHES["pair_emit"] == before + len(buffers) == before + 2
+    assert pairs.data_ptr() == buffers[-1]
+    assert pairs.shape == (110_000_000, 2) and pairs.is_contiguous()
+    assert pairs.dtype == torch.int64
+    k = int(count)
+    assert 0 < k < pairs.shape[0]
+    assert bool((pairs[:k] < SYNC_N).all()) and bool((pairs[k:] == slabs.NO_PAIR).all())
 
 
 def _dense_frame(seed, frame):

@@ -213,6 +213,52 @@ def test_fill_emit_modes_match_jax_kernel_mode(engine, monkeypatch):
     assert pair_array_to_set(torch.stack(got[:2], dim=1), len(expected)) == expected
 
 
+@pytest.mark.parametrize("emitter", ["sparse", "kernel"])
+@pytest.mark.parametrize("engine", ["column", "slab", "slab_split"])
+def test_fill_pair_buffers_are_the_fills_columns(engine, emitter,
+                                                 monkeypatch):
+    # The buffer forms on the scenes above: a contiguous int64
+    # [capacity, 2] buffer whose columns are the JAX-named fills' ida and
+    # idb (views of one buffer), the same totals and flags, under both
+    # emitters, and the pairs of the scene.
+    monkeypatch.setattr(fill, "BIG_FILL_THRESHOLD",
+                        1 << 21 if emitter == "sparse" else 0)
+    if engine == "column":
+        _, n, seed, gxy, cc, sr, rscale = SCENES[1]
+        coords, radii = _points(n, seed, rscale)
+        plan = columns.plan_columns(torch.from_numpy(coords),
+                                    torch.from_numpy(radii), gxy, cc, sr)
+        buffer = lambda cap: fill.column_fill_pairs(plan, cap, 2)  # noqa: E731
+        named = lambda cap: fill.column_fill_from_plan(plan, cap, 2)  # noqa: E731
+    else:
+        _, n, seed, gx, cc, sr, rscale = SCENES[4]
+        coords, radii = _points(n, seed, rscale)
+        plan = slabs.plan_slabs(torch.from_numpy(coords),
+                                torch.from_numpy(radii), gx, cc, sr)
+        split = engine == "slab_split"
+        buffer = lambda cap: fill.slab_fill_pairs(  # noqa: E731
+            plan, cap, split_ok=split)
+        named = lambda cap: fill.slab_fill_from_plan(  # noqa: E731
+            plan, cap, split_ok=split)
+    expected = brute_force_collisions(coords, radii)
+    for capacity in (32, len(expected) + 9):
+        pairs, *flags = buffer(capacity)
+        ida, idb, *want_flags = named(capacity)
+        assert pairs.dtype == torch.int64 and pairs.shape == (capacity, 2)
+        assert pairs.is_contiguous()
+        assert ida.stride() == idb.stride() == (2,)
+        assert idb.data_ptr() - ida.data_ptr() == ida.element_size()
+        assert torch.equal(pairs[:, 0], ida) and torch.equal(pairs[:, 1], idb)
+        assert len(flags) == len(want_flags) == (3 if engine == "slab_split"
+                                                 else 2)
+        for got, want in zip(flags, want_flags):
+            assert torch.equal(got, want)
+        assert all(bool(f) for f in flags[1:])
+        assert int(flags[0]) == len(expected)
+    assert pair_array_to_set(pairs, len(expected)) == expected
+    assert (pairs[len(expected):] == NO_PAIR).all()
+
+
 @pytest.mark.parametrize("method", ["column", "slab", "hetero"])
 def test_collide_above_big_fill_threshold(method):
     rng = np.random.RandomState(7)
