@@ -37,9 +37,11 @@ on the reference's dense scene:
    attempt comes back ok=False and whose retry must take the column
    route at exact knobs and return all 107,651,273 pairs: checked against
    the independent count-only call, for strict overlap, self pairs and
-   repeats on the card, and bit for bit against the plain path; the row
-   counts (``row_popcounts``) and the emission kernel against their plain
-   versions at the exact plan;
+   repeats on the card, and bit for bit against the plain path; its four
+   column plans each one launch of the column plan chain; the row counts
+   (``row_popcounts``), the emission kernel and the column plan chain
+   (``column_plan``, every field bit for bit, at the default and the
+   exact knobs) against their plain versions at the exact plan;
 7. ``collide_exact`` at 65536 spheres of the same radii and capacity 2^23
    (``dense_oracle``), against the k-d tree oracle;
 8. the grid engine (``grid``) on the 1M uniform scene at its default
@@ -147,7 +149,8 @@ SLAB_KERNELS = ("slab_count", "slab_masks", "compact_mask", "row_popcounts",
                 "slab_plan")
 #: The benchmark's slab scene: 16M spheres at a pinned gx of 1000.
 PLAN_16M = (1 << 24, 1000)
-COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks")
+COLUMN_KERNELS = ("sweep_count_rolled", "sweep_count_aligned", "sweep_masks",
+                  "column_plan")
 #: The hetero scenes' fill capacity: room for every pair of both.
 HETERO_CAPACITY = 1 << 19
 #: Spheres given radius GIANT_RADIUS in the giants scene.
@@ -157,7 +160,8 @@ GIANT_RADIUS = 0.02
 HETERO_ROUTES = {
     "hetero_powerlaw": (("column", 26, 1728, 313, 3),
                         ("big_count", "big_pairs", "sweep_count_rolled",
-                         "sweep_masks", "compact_mask", "row_popcounts")),
+                         "sweep_masks", "compact_mask", "row_popcounts",
+                         "column_plan")),
     "hetero_giants": (("slab", 146),
                       ("big_count", "big_pairs", "slab_count", "slab_masks",
                        "compact_mask", "row_popcounts", "slab_plan")),
@@ -173,6 +177,9 @@ DENSE_CAPACITY = 110_000_000
 DENSE_PAIRS = 107_651_273
 DENSE_ROUTE = {"method": "column", "gxy": 14, "col_capacity": 4608,
                "slab_rows": 295, "rpw": 12}
+#: Column plans a dense frame builds: auto's attempt, the retry's two
+#: statistics plans and the rung's.
+DENSE_PLANS = 4
 #: The dense radii at a size the k-d tree oracle checks in seconds.
 ORACLE_N = 65536
 ORACLE_CAPACITY = 1 << 23
@@ -249,11 +256,13 @@ def time_ms(fn, warmup=2, reps=10, batch=1):
 @contextlib.contextmanager
 def plain_kernels():
     """Run the pipeline with each kernel's plain version, on the card."""
-    from collision_tpu_torch.kernels import (batched, bigpass, compact, emit,
-                                             grid_bins, halo, pair_emit,
-                                             slab_plan, slab_sweep, sweep)
+    from collision_tpu_torch.kernels import (batched, bigpass, column_plan,
+                                             compact, emit, grid_bins, halo,
+                                             pair_emit, slab_plan, slab_sweep,
+                                             sweep)
 
     swaps = [(grid_bins, "build_bins"), (slab_plan, "build_plan"),
+             (column_plan, "build_plan"),
              (slab_sweep, "slab_window_count"), (slab_sweep, "slab_masks"),
              (slab_sweep, "diag_count"),
              (compact, "compact_mask"), (sweep, "sweep_count"),
@@ -736,6 +745,8 @@ def dense_fill(dev, record, launches):
           f"dense: the exact attempt's route {exact['knobs']}")
     check(exact["pair_emit"] == 1,
           f"dense: the exact attempt launched pair_emit {exact['pair_emit']}x")
+    check(run["column_plan"] == DENSE_PLANS,
+          f"dense: column_plan launched {run['column_plan']}x")
     check(int(count) == DENSE_PAIRS, f"dense: count {int(count)}")
     count_only = Collider(DENSE_N).get_collisions(coords, radii, 0,
                                                   collisions=None)
@@ -801,6 +812,8 @@ def dense_fill(dev, record, launches):
           "dense: pair_emit at the exact plan == the Collider's pairs")
     del got, want, pairs
     launches["pair_emit"] = run["pair_emit"]
+    launches["column_plan"] = run["column_plan"]
+    plan_phase = column_plan_path(record, coords, radii, route)
     # Bytes: every mask word read once, one 16-byte (a, b) slot written,
     # sentinels included; beside it, the bound of an emission that writes
     # two uint32 ids a pair and no sentinels.
@@ -816,7 +829,7 @@ def dense_fill(dev, record, launches):
           mask_culled_tests=mask_culled,
           step_ms=step_ms,
           pair_emit_uint32_bound_ms=uint32_bound_ms,
-          exact_attempt_ms=exact_ms, peak_bytes=peak,
+          exact_attempt_ms=exact_ms, peak_bytes=peak, column_plan=plan_phase,
           seconds=time.perf_counter() - t0)
 
 
@@ -1386,7 +1399,7 @@ def slab_plan_path(dev, record, coords, radii):
     import torch
     from collision_tpu_torch import slabs
     from collision_tpu_torch.kernels import slab_plan
-    from collision_tpu_torch.testing.scenes import slab_plan_mismatches
+    from collision_tpu_torch.testing.scenes import plan_mismatches
 
     def work(c, r, plan):
         n = c.shape[0]
@@ -1398,7 +1411,7 @@ def slab_plan_path(dev, record, coords, radii):
 
     config = slabs.default_slab_config(coords.shape[0])
     got = slab_plan.build_plan(coords, radii, *config)
-    bad = slab_plan_mismatches(got, slabs.plan_slabs_plain(coords, radii,
+    bad = plan_mismatches(got, slabs.plan_slabs_plain(coords, radii,
                                                            *config))
     check(bad == [], f"slab_plan n={coords.shape[0]}: every field == plain "
           f"path's ({bad})")
@@ -1415,7 +1428,7 @@ def slab_plan_path(dev, record, coords, radii):
     _, _, c, r = uniform_scene(n, dev)
     config = slabs.default_slab_config(n, gx=gx)
     got = slab_plan.build_plan(c, r, *config)
-    bad = slab_plan_mismatches(got, slabs.plan_slabs_plain(c, r, *config))
+    bad = plan_mismatches(got, slabs.plan_slabs_plain(c, r, *config))
     check(bad == [], f"slab_plan n={n} gx={gx}: every field == plain path's "
           f"({bad})")
     moved, extra = work(c, r, got)
@@ -1429,6 +1442,67 @@ def slab_plan_path(dev, record, coords, radii):
                            reps=5),
           bound_ms=bound(moved, 0)[0], **extra,
           seconds=time.perf_counter() - t0)
+
+
+def column_plan_path(record, coords, radii, route):
+    """The column plan chain against its plain path, bit for bit, on the
+    dense scene: its record at the exact knobs (``route``: gxy,
+    col_capacity, slab_rows), and at the default knobs, where the plan
+    says ok=False, its times and statistics. The bound's bytes: centres
+    and radii read once, the stream, starts and tables written once; the
+    sort's digit passes, each reading and writing the 32-bit keys and
+    ids, beside them (``sort_bytes``), and the keys, ids and packed
+    records written and read once (``scratch_bytes``). Returns the
+    default knobs' fields."""
+    from collision_tpu_torch import columns
+    from collision_tpu_torch.kernels import column_plan
+    from collision_tpu_torch.testing.scenes import plan_mismatches
+
+    def work(c, r, plan):
+        n = c.shape[0]
+        moved = nbytes(c, r, plan.stream, plan.starts, plan.w0, plan.wcap)
+        sort_bytes = 16 * n * -(-(columns._zbits(plan.gxy)
+                                  + (plan.gxy ** 2 - 1).bit_length()) // 8)
+        return moved, {"sort_bytes": sort_bytes, "scratch_bytes": 48 * n,
+                       "bound_with_sort_ms": bound(moved + sort_bytes, 0)[0]}
+
+    default = columns.default_column_config(coords.shape[0])
+    exact = (route["gxy"], route["col_capacity"], route["slab_rows"])
+    fields = {}
+    for label, config in (("default", default), ("exact", exact)):
+        got = column_plan.build_plan(coords, radii, *config)
+        want = columns.plan_columns_plain(coords, radii, *config)
+        bad = plan_mismatches(got, want)
+        check(bad == [], f"column_plan {label} {config}: every field == "
+              f"plain path's ({bad})")
+        moved, extra = work(coords, radii, got)
+        fields[label] = {"config": config, "ok": bool(got.ok),
+                         "max_col": int(got.max_col),
+                         "max_slab_rows": int(got.max_slab_rows),
+                         "rows_needed": int(got.rows_needed),
+                         "rows_rolled": int(got.rows_rolled)}
+        del got, want
+        if label == "exact":
+            record("column_plan", "collision_tpu_torch/csrc/column_plan.cu",
+                   "none (XLA ops: collision_tpu/columns.py plan_columns)",
+                   len(bad),
+                   lambda: column_plan.build_plan(coords, radii, *config),
+                   lambda: columns.plan_columns_plain(coords, radii, *config),
+                   moved, 0, extra={**extra, "closed_loop_ms": time_ms(
+                       lambda: column_plan.build_plan(coords, radii,
+                                                      *config))})
+        else:
+            fields[label].update(
+                ms=time_ms(lambda: column_plan.build_plan(coords, radii,
+                                                          *config),
+                           batch=KERNEL_BATCH),
+                closed_loop_ms=time_ms(
+                    lambda: column_plan.build_plan(coords, radii, *config)),
+                plain_ms=time_ms(
+                    lambda: columns.plan_columns_plain(coords, radii,
+                                                       *config)),
+                bound_ms=bound(moved, 0)[0], **extra)
+    return fields
 
 
 def counted(fn):
@@ -1643,7 +1717,7 @@ def main():
               oks=[bool(res.ok) for res in results], launches=auto_launches)
         want = {"sweep_count_rolled": 0 in capacities,
                 "sweep_masks": any(capacities),
-                "row_popcounts": any(capacities)}
+                "row_popcounts": any(capacities), "column_plan": True}
         for name, ran in auto_launches.items():
             check((ran > 0) == want.get(name, False),
                   f"auto n={n_auto}: {name} launched {ran}x")

@@ -10,9 +10,10 @@ is exact, and capacity overflows are detected (``ok=False``), never
 silently wrong.
 
 The stream, the z quantizer and the float32 helpers are shared with the
-slab engine (slabs.py). Sort keys and positions are int64 here where the
-JAX plan has uint32: torch's uint32 has no ``<<`` and no
-``searchsorted``.
+slab engine (slabs.py). The plain path's sort keys and positions are
+int64 where the JAX plan has uint32: torch's uint32 has no ``<<`` and no
+``searchsorted``. On the card the plan is the kernel chain of
+``kernels.column_plan``, which sorts uint32 keys.
 """
 
 from typing import NamedTuple
@@ -184,8 +185,28 @@ def plan_columns(coords, radii, gxy, col_capacity, slab_rows, by="engine"):
     inputs. ``coords`` [n, 3] and ``radii`` [n] are float32 on one
     device; the plan lives there too. ``by`` is the builder counted in
     ``tracing.PLANS``: "engine", or "retry" for a plan the retry ladder
-    builds for its statistics."""
+    builds for its statistics.
+
+    A float32 CUDA tensor's plan is built by the kernel chain of
+    ``kernels.column_plan``, which reads nothing back on the host; any
+    other tensor's, every CPU tensor's among them, by
+    :func:`plan_columns_plain`. Both give the same plan bit for bit.
+    """
     tracing.PLANS[by] += 1
+    if (coords.is_cuda and coords.dtype == torch.float32
+            and radii.dtype == torch.float32):
+        from .kernels import column_plan
+
+        return column_plan.build_plan(coords, radii, gxy, col_capacity,
+                                      slab_rows)
+    return plan_columns_plain(coords, radii, gxy, col_capacity, slab_rows)
+
+
+def plan_columns_plain(coords, radii, gxy, col_capacity, slab_rows):
+    """Plain PyTorch version of :func:`plan_columns`: the CPU route, and
+    the card's reference. On a CUDA tensor it waits for the device five
+    times (the ``columns._scalar`` constants and ``chunk_z_ranges``'
+    bound)."""
     dev = coords.device
     n = coords.shape[0]
     zbits = _zbits(gxy)

@@ -1,12 +1,14 @@
-// The steps both plan chains run on the card to bucket spheres by a
-// 32-bit key, the slab plan (slab_plan.cu) and the grid bins
-// (grid_bins.cu): the bounds partials, the packed sphere record, the
-// stable sort on only the key's bits and each bucket's first sorted
-// index. Each chain keeps its own scalars, keys and output passes. Every
-// subtraction, addition and division is IEEE and rounded to nearest,
-// stated by intrinsic rather than left to flags (built without
-// --use_fast_math). In an unnamed namespace, like the chains' own code:
-// each source that includes it compiles its own copy of the kernel.
+// The steps the plan chains run on the card to bucket spheres by a
+// 32-bit key, the slab plan (slab_plan.cu), the column plan
+// (column_plan.cu) and the grid bins (grid_bins.cu): the bounds partials,
+// the packed sphere record, the z quantizer and workspace layout of the
+// two sweep plans, the stable sort on only the key's bits and each
+// bucket's first sorted index. Each chain keeps its own scalars, keys and
+// output passes. Every subtraction, addition and division is IEEE and
+// rounded to nearest, stated by intrinsic rather than left to flags
+// (built without --use_fast_math). In an unnamed namespace, like the
+// chains' own code: each source that includes it compiles its own copy of
+// the kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -159,6 +161,40 @@ __device__ inline I lower_bound(const unsigned* __restrict__ keys, I lo, I hi,
   return lo;
 }
 
+// starts[b] = the first sorted index whose key is >= b << shift, b in [0,
+// buckets): each bucket's first sorted index.
+__global__ void __launch_bounds__(THREADS)
+    bucket_starts_kernel(const unsigned* __restrict__ keys, long long n,
+                         long long buckets, int shift,
+                         int* __restrict__ starts) {
+  const long long b = static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x;
+  if (b >= buckets) return;
+  starts[b] = static_cast<int>(lower_bound<long long>(
+      keys, 0, n, static_cast<unsigned long long>(b) << shift));
+}
+
+// Launches bucket_starts_kernel on the n sorted keys.
+inline void bucket_starts(const unsigned* keys, long long n,
+                          long long buckets, int shift, int* starts,
+                          cudaStream_t stream) {
+  bucket_starts_kernel<<<static_cast<unsigned>((buckets + THREADS - 1) /
+                                               THREADS),
+                         THREADS, 0, stream>>>(keys, n, buckets, shift,
+                                               starts);
+}
+
+// min(trunc(clamp((z - lo) * scale, 0, 2^32)), zmax): the plain plans'
+// columns._quantize, whose integer clamp keeps a top sphere out of the
+// bucket bits of the key.
+__device__ inline unsigned quantize(float z, float lo, float scale,
+                                    unsigned zmax) {
+  const float q = __fmul_rn(__fsub_rn(z, lo), scale);
+  const unsigned long long t =
+      __float2ull_rz(fminf(fmaxf(q, 0.0f), 4294967296.0f));
+  return t < zmax ? static_cast<unsigned>(t) : zmax;
+}
+
 template <typename P>
 P* carved(char* work, long long offset) {
   return reinterpret_cast<P*>(work + offset);
@@ -206,6 +242,21 @@ struct Workspace {
     return cub::DeviceRadixSort::SortPairs(work + temp, bytes, *k, *v,
                                            static_cast<int>(n), 0, bits,
                                            stream);
+  }
+};
+
+// The workspace of a sweep plan's chain (slab_plan.cu, column_plan.cu), as
+// byte offsets: the bounds partials, the chain's scalars S, the sort's
+// parts for n keys of `bits` bits and the n packed float spheres.
+template <typename S>
+struct PlanLayout : Workspace {
+  long long partial, scalars, spheres;
+  cudaError_t carve(long long n, int bits) {
+    partial = take(BOUNDS_BLOCKS * 8 * sizeof(float));
+    scalars = take(sizeof(S));
+    const cudaError_t err = take_sort(n, bits);
+    spheres = take(sizeof(Sphere<float>) * n);
+    return err;
   }
 };
 

@@ -30,9 +30,9 @@
 // order, nothing read back by the host (* marks bucket_sort.cuh's steps):
 // bounds_partial_kernel*, bounds_final_kernel, keys_kernel, sort_pairs*
 // on bits [0, bit_length(gd^3 - 1)) only (3 digit passes at gd 61 where a
-// 64-bit key takes 8), starts_kernel and fill_kernel, which writes every
-// bin slot once, never filled first. Nothing the size of [n, 8] or an
-// int64 key is materialised.
+// 64-bit key takes 8), bucket_starts_kernel* and fill_kernel, which
+// writes every bin slot once, never filled first. Nothing the size of [n,
+// 8] or an int64 key is materialised.
 //
 // On an H100 at 16M spheres the chain takes 1.66-1.68 ms of device time
 // (the torch ops it replaces: 11.77): the fill 0.91, cub's sort 0.42 (its
@@ -132,15 +132,6 @@ __global__ void __launch_bounds__(THREADS)
   keys[i] = key;
   ids[i] = static_cast<unsigned>(i);
   spheres[i] = Sphere<T>{c[0], c[1], c[2], radii[i]};
-}
-
-// starts[c] = the first sorted index whose key is >= c, c in [0, cells].
-__global__ void __launch_bounds__(THREADS)
-    starts_kernel(const unsigned* __restrict__ keys, int n, unsigned cells,
-                  int* __restrict__ starts) {
-  const unsigned c = blockIdx.x * THREADS + threadIdx.x;
-  if (c > cells) return;
-  starts[c] = static_cast<int>(lower_bound<unsigned>(keys, 0, n, c));
 }
 
 // A warp a padded cell writes the cell's M rows as one contiguous run, 16
@@ -245,8 +236,9 @@ cudaError_t chain(const T* coords, const T* radii, long long n, int gd,
     err = l.sort_pairs(work, n, key_bits(gd), stream, &dk, &dv);
     if (err != cudaSuccess) return err;
     const unsigned cells = static_cast<unsigned>(gd) * gd * gd;
-    starts_kernel<<<(cells + THREADS) / THREADS, THREADS, 0, stream>>>(
-        dk.Current(), static_cast<int>(n), cells, st);
+    // starts[c] = the first sorted index whose key is >= c, c in [0,
+    // cells].
+    bucket_starts(dk.Current(), n, cells + 1LL, 0, st, stream);
     starts = st;
     sorted_ids = dv.Current();
   }

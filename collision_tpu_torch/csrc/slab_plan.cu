@@ -39,10 +39,11 @@
 // order, nothing read back by the host (* marks bucket_sort.cuh's steps):
 // bounds_partial_kernel*, scalars_kernel, keys_kernel, sort_pairs* on
 // bits [0, zbits + bit_length(gx - 1)) only, the bits a key can hold (4
-// digit passes at gx 1000 where an int64 key takes 8), starts_kernel,
-// stream_kernel, which writes the stream once, never filled first, and
-// tables_kernel, which reads the chunks' z ranges from the stream and
-// runs their threshold searches at once, a binary search a lane.
+// digit passes at gx 1000 where an int64 key takes 8),
+// bucket_starts_kernel*, stream_kernel, which writes the stream once,
+// never filled first, and tables_kernel, which reads the chunks' z ranges
+// from the stream and runs their threshold searches at once, a binary
+// search a lane.
 
 #include "bucket_sort.cuh"
 #include "stream.cuh"
@@ -62,16 +63,6 @@ constexpr int GROUP = 8;
 struct Scalars {
   float lo_x, lo_z, sx, zscale, zhi_scene, r_max;
 };
-
-// min(trunc(clamp((z - lo) * scale, 0, 2^32)), zmax): the plain path's
-// _quantize, whose integer clamp keeps a top sphere out of the slab bits.
-__device__ inline unsigned quantize(float z, float lo, float scale,
-                                    unsigned zmax) {
-  const float q = __fmul_rn(__fsub_rn(z, lo), scale);
-  const unsigned long long t =
-      __float2ull_rz(fminf(fmaxf(q, 0.0f), 4294967296.0f));
-  return t < zmax ? static_cast<unsigned>(t) : zmax;
-}
 
 // One block: the plan's scalars and diag_thr from the partials;
 // maxima[0..2] = 0, *ok = 1. gx, zbits and the capacities arrive as
@@ -122,16 +113,6 @@ __global__ void __launch_bounds__(THREADS)
             quantize(z, p.lo_z, p.zscale, (1u << zbits) - 1);
   ids[i] = static_cast<unsigned>(i);
   spheres[i] = Sphere<float>{x, y, z, radii[i]};
-}
-
-// starts[b] = the first sorted index of slab b, b in [0, gx + 2).
-__global__ void __launch_bounds__(THREADS)
-    starts_kernel(const unsigned* __restrict__ keys, long long n, int gx,
-                  int zbits, int* __restrict__ starts) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= gx + 2) return;
-  starts[b] = static_cast<int>(lower_bound<long long>(
-      keys, 0, n, static_cast<unsigned long long>(b) << zbits));
 }
 
 // Lane p of the stream, p in [0, rows * 128): sorted sphere p's eight
@@ -282,18 +263,7 @@ __global__ void __launch_bounds__(THREADS)
 // The bits a key can hold: zbits of z and bit_length(gx - 1) of slab.
 int key_bits(int gx, int zbits) { return zbits + bit_length(gx - 1); }
 
-// The workspace's parts, as byte offsets.
-struct Layout : Workspace {
-  long long partial, scalars, spheres;
-};
-
-cudaError_t layout(long long n, int gx, int zbits, Layout* l) {
-  l->partial = l->take(BOUNDS_BLOCKS * 8 * sizeof(float));
-  l->scalars = l->take(sizeof(Scalars));
-  const cudaError_t err = l->take_sort(n, key_bits(gx, zbits));
-  l->spheres = l->take(sizeof(Sphere<float>) * n);
-  return err;
-}
+using Layout = PlanLayout<Scalars>;
 
 // n in [1, 2^31), gx in [1, 4096], and every key col << zbits | zq, col <
 // gx, in 32 bits.
@@ -312,7 +282,7 @@ extern "C" int slab_plan_workspace(long long n, int gx, int zbits,
   if (!bytes || !valid(n, gx, zbits))
     return static_cast<int>(cudaErrorInvalidValue);
   Layout l;
-  const cudaError_t err = layout(n, gx, zbits, &l);
+  const cudaError_t err = l.carve(n, key_bits(gx, zbits));
   *bytes = l.end;
   return static_cast<int>(err);
 }
@@ -339,7 +309,7 @@ extern "C" int slab_plan_launch(const void* coords, const void* radii,
       (reinterpret_cast<uintptr_t>(work) & (ALIGN - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Layout l;
-  cudaError_t err = layout(n, gx, zbits, &l);
+  cudaError_t err = l.carve(n, key_bits(gx, zbits));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (work_bytes < l.end) return static_cast<int>(cudaErrorInvalidValue);
   char* w = static_cast<char*>(work);
@@ -365,8 +335,8 @@ extern "C" int slab_plan_launch(const void* coords, const void* radii,
   err = l.sort_pairs(w, n, key_bits(gx, zbits), cs, &dk, &dv);
   if (err != cudaSuccess) return static_cast<int>(err);
   int* st = static_cast<int*>(starts);
-  starts_kernel<<<(gx + 2 + THREADS - 1) / THREADS, THREADS, 0, cs>>>(
-      dk.Current(), n, gx, zbits, st);
+  // starts[b] = the first sorted index of slab b, b in [0, gx + 2).
+  bucket_starts(dk.Current(), n, gx + 2, zbits, st, cs);
   const long long lanes = rows * LANE;
   float* out = static_cast<float*>(stream_out);
   stream_kernel<<<static_cast<unsigned>((lanes + THREADS - 1) / THREADS),

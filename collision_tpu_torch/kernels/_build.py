@@ -76,6 +76,13 @@ _ARGTYPES = {
     # diag_thr, cuda stream
     "slab_plan_launch": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _P, _L, _P, _P,
                          _P, _P, _P, _P, _P, _P],
+    # n, gxy, zbits, out bytes
+    "column_plan_workspace": [_L, _I, _I, _P],
+    # coords, radii, n, gxy, zbits, mc, col_capacity, slab_rows, stream
+    # rows, workspace, its bytes, stream, starts, w0, wcap, stats, ok,
+    # cuda stream
+    "column_plan_launch": [_P, _P, _L, _I, _I, _I, _I, _I, _L, _P, _L, _P,
+                           _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -151,10 +158,11 @@ def launch_on(stream, name, *args):
 
 @functools.lru_cache(maxsize=128)
 def workspace_bytes(name, *args):
-    """Device bytes the workspace query ``name`` (``grid_bins_workspace``
-    or ``slab_plan_workspace``) reports for ``args``: the chain's key and
-    id double buffers, packed spheres, bounds partials, its own parts and
-    cub's temporary storage (``csrc/bucket_sort.cuh``)."""
+    """Device bytes the workspace query ``name`` (``grid_bins_workspace``,
+    ``slab_plan_workspace`` or ``column_plan_workspace``) reports for
+    ``args``: the chain's key and id double buffers, packed spheres,
+    bounds partials, its own parts and cub's temporary storage
+    (``csrc/bucket_sort.cuh``)."""
     out = ctypes.c_longlong()
     err = getattr(library(), name)(*args, ctypes.addressof(out))
     if err:

@@ -372,13 +372,41 @@ SLAB_PLAN_KINDS = ("uniform", "flat_z", "zero_radii", "giant", "ties",
                    "parked")
 
 
-def slab_plan_mismatches(got, want):
-    """The fields in which two ``slabs.SlabPlan`` differ, on any devices:
-    a tensor's dtype, shape or bits (floats compared as their int32 bit
+def column_plan_scene(kind, n, seed):
+    """n spheres for the column plan's edges, as (coords, radii): the
+    kinds of :func:`slab_plan_scene`, and "dense" (radii U(0, 0.06), the
+    reference's dense benchmark scene), "one_column" (every centre at one
+    xy point: one column holds every sphere), "power_law" (radii 0.004 (1
+    + pareto(1.2)), clipped at 0.35, over 8: a few spheres far larger
+    than the rest, for the hetero engine's split to park) and
+    "top_rounds_low" (:func:`scene_top_rounds_low`)."""
+    if kind == "top_rounds_low":
+        return scene_top_rounds_low(n, seed)
+    rng = np.random.RandomState(seed)
+    if kind == "dense":
+        return (rng.random((n, 3)).astype(np.float32),
+                rng.uniform(0, 0.06, n).astype(np.float32))
+    if kind == "power_law":
+        return (rng.random((n, 3)).astype(np.float32),
+                ((0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.35) / 8)
+                .astype(np.float32))
+    if kind == "one_column":
+        coords, radii = slab_plan_scene("uniform", n, seed)
+        coords[:, :2] = np.float32(0.3)
+        return coords, radii
+    return slab_plan_scene(kind, n, seed)
+
+
+def plan_mismatches(got, want):
+    """The fields in which two plans of one ``NamedTuple`` type
+    (``slabs.SlabPlan``, ``columns.ColumnPlan``) differ, on any devices: a
+    tensor's dtype, shape or bits (floats compared as their int32 bit
     patterns, so signed zeros count), an int's value. Empty when they are
     the same plan."""
     import torch
 
+    if type(got) is not type(want):
+        return ["type"]
     bad = []
     for name, a in got._asdict().items():
         b = getattr(want, name)

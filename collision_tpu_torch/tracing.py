@@ -28,8 +28,8 @@ Counters, always on (a dict increment each):
   site: a device constant made from a host value, a device value read
   on the host, an input copied to the device. Counted on any device, so
   a CPU run counts what the same route waits for on the card, but for
-  the slab plan: the CPU's plain path counts six, the card's kernel
-  chain waits for none;
+  the slab and column plans: the CPU's plain paths count six and five,
+  the card's kernel chains wait for none;
 - ``ATTEMPTS``: engine runs, by engine; a ``Collider.get_collisions``
   frame whose first attempt holds makes one, each retry rung one more;
 - ``PLANS``: column plans built, by builder: ``"engine"`` for a plan a
@@ -54,7 +54,8 @@ LAUNCHES = {"slab_count": 0, "slab_masks": 0, "compact_mask": 0,
             "sweep_masks": 0, "big_count": 0, "big_pairs": 0,
             "pair_emit": 0, "halo_count": 0, "batched_count": 0,
             "grid_tile_counts": 0, "grid_emit": 0, "diag_count": 0,
-            "row_popcounts": 0, "grid_bins": 0, "slab_plan": 0}
+            "row_popcounts": 0, "grid_bins": 0, "slab_plan": 0,
+            "column_plan": 0}
 
 #: Host syncs per site (``module.function``).
 HOST_SYNCS = collections.Counter()

@@ -115,3 +115,61 @@ def test_plan_from_numpy_roundtrip():
     coords, radii = _scene("uniform", 1000, 7)
     d, _ = _both_plans(coords, radii, gxy=3)
     _assert_plans_equal(d, columns.plan_from_numpy(d, "cpu"))
+
+
+#: (kind, n, gxy) of the plan's edge scenes on the CPU: the kinds of
+#: ``testing.scenes.column_plan_scene``; gxy None: the default config.
+EDGE_PLANS = [("uniform", 1, None), ("uniform", 65, 14), ("dense", 3000, None),
+              ("one_column", 300, 4), ("top_rounds_low", 2000, 1),
+              ("parked", 129, 3), ("power_law", 2000, 64)]
+
+
+@pytest.mark.parametrize("kind,n,gxy", EDGE_PLANS)
+def test_plan_columns_on_cpu_is_the_plain_plan(kind, n, gxy):
+    # On a CPU tensor plan_columns and the chain's wrapper both return the
+    # plain path's plan (the plan the card's chain is held to,
+    # tests/test_torch_cuda.py), which waits five times and launches
+    # nothing; plan_columns counts its plan, the plain body does not.
+    from collision_tpu_torch import tracing
+    from collision_tpu_torch.kernels import column_plan
+    from collision_tpu_torch.testing.scenes import (column_plan_scene,
+                                                    plan_mismatches)
+
+    coords, radii = column_plan_scene(kind, n, n + 7)
+    c, r = torch.from_numpy(coords), torch.from_numpy(radii)
+    config = columns.default_column_config(n, gxy=gxy)
+    tracing.reset()
+    want = columns.plan_columns_plain(c, r, *config)
+    assert sum(tracing.HOST_SYNCS.values()) == 5 and not tracing.PLANS
+    for by in ("engine", "retry"):
+        tracing.reset()
+        got = columns.plan_columns(c, r, *config, by=by)
+        assert plan_mismatches(got, want) == []
+        assert dict(tracing.HOST_SYNCS) == {"columns._scalar": 4,
+                                            "columns.chunk_z_ranges": 1}
+        assert dict(tracing.PLANS) == {by: 1}
+    tracing.reset()
+    assert plan_mismatches(column_plan.build_plan(c, r, *config), want) == []
+    assert sum(tracing.HOST_SYNCS.values()) == 5 and not tracing.PLANS
+    assert not any(tracing.LAUNCHES.values()), tracing.LAUNCHES
+
+
+@pytest.mark.parametrize("n,gxy,col_capacity,slab_rows", [
+    (0, 1, 64, 4), (100, 0, 64, 4), (100, -3, 64, 4), (100, 46341, 64, 4),
+    (100, 2, 0, 4), (100, 2, -64, 4), (300, 2, 64, -4)])
+def test_column_plan_rejects_bad_arguments(n, gxy, col_capacity, slab_rows):
+    # The chain's wrapper checks its arguments on any device before any
+    # launch, as kernels.slab_plan does on the card: no sphere, a gxy
+    # whose extended column ids leave z no bit of a 32-bit key, no column
+    # capacity, a stream shorter than the spheres.
+    from collision_tpu_torch import tracing
+    from collision_tpu_torch.kernels import column_plan
+
+    tracing.reset()
+    rng = np.random.RandomState(n)
+    c = torch.from_numpy(rng.random((n, 3)).astype("float32"))
+    r = torch.full((n,), 0.01)
+    with pytest.raises(ValueError):
+        column_plan.build_plan(c, r, gxy, col_capacity, slab_rows)
+    assert not any(tracing.LAUNCHES.values())
+    assert not tracing.HOST_SYNCS

@@ -848,7 +848,7 @@ def test_slab_plan_chain_matches_plain(cuda, case):
     # bits, the stream pass, the tables) against the plain path on the
     # same CUDA tensors, every field bit for bit.
     from collision_tpu_torch.kernels import slab_plan
-    from collision_tpu_torch.testing.scenes import (slab_plan_mismatches,
+    from collision_tpu_torch.testing.scenes import (plan_mismatches,
                                                     slab_plan_scene)
 
     kind, n, gx, seed = case
@@ -860,8 +860,8 @@ def test_slab_plan_chain_matches_plain(cuda, case):
     got = slabs.plan_slabs(c, r, *config)
     assert _build.LAUNCHES["slab_plan"] == before + 1
     assert got.stream.is_cuda and got.w0.is_cuda
-    assert slab_plan_mismatches(got, want) == []
-    assert slab_plan_mismatches(slab_plan.build_plan(c, r, *config), want) == []
+    assert plan_mismatches(got, want) == []
+    assert plan_mismatches(slab_plan.build_plan(c, r, *config), want) == []
 
 
 def test_slab_frames_launch_the_plan_chain_once(cuda, monkeypatch):
@@ -906,6 +906,143 @@ def test_slab_frames_launch_the_plan_chain_once(cuda, monkeypatch):
     slabs.plan_slabs(coords[:3000], radii[:3000],
                      *slabs.default_slab_config(3000))
     assert not any(tracing.LAUNCHES.values())
+
+
+#: (kind, n, gxy, capacities, seed) of the column plan chain's cases: the
+#: kinds of ``testing.scenes.column_plan_scene``; gxy None: the default
+#: config; capacities "default" (``columns.default_column_config``'s at
+#: that gxy) or "adopted" (the retry's: the plain plan's own statistics).
+COLUMN_PLAN_CASES = [
+    ("uniform", 100_000, None, "default", 0),
+    ("uniform", 1_000_000, None, "default", 1),
+    ("dense", 307_200, None, "default", 2),
+    ("dense", 307_200, None, "adopted", 2),
+    ("dense", 307_200, 448, "default", 3),
+    ("dense", 307_200, 448, "adopted", 3),
+    ("top_rounds_low", 2000, 1, "default", 0),
+    ("flat_z", 100_000, None, "default", 4),
+    ("flat_z", 5000, 14, "default", 5),
+    ("one_column", 5000, 14, "default", 6),
+    ("one_column", 5000, 14, "adopted", 6),
+    ("zero_radii", 100_000, 64, "default", 7),
+    ("zero_radii", 129, 1, "default", 8),
+    ("power_law", 200_000, None, "default", 9),
+    ("power_law", 200_000, 64, "adopted", 10),
+    ("giant", 65, None, "default", 11),
+    ("ties", 100_000, 14, "default", 12),
+    ("uniform", 1, None, "default", 13),
+    ("uniform", 63, 14, "default", 14),
+    ("uniform", 64, 64, "default", 15),
+    ("uniform", 65, 448, "default", 16),
+    ("uniform", 129, 1, "default", 17),
+    ("uniform", 129, 448, "adopted", 18)]
+
+
+@pytest.mark.parametrize("case", COLUMN_PLAN_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_column_plan_chain_matches_plain(cuda, case):
+    # The card's chain (bounds and scalars, keys, a sort on the key's
+    # bits, the column starts, the stream pass, the tables) against the
+    # plain path on the same CUDA tensors, every field bit for bit, ok and
+    # the retry's four statistics included. Power-law radii are parked as
+    # the hetero engine parks its big spheres.
+    from collision_tpu_torch import tracing
+    from collision_tpu_torch.kernels import column_plan
+    from collision_tpu_torch.testing.scenes import (column_plan_scene,
+                                                    plan_mismatches)
+    from collision_tpu_torch.utils import round_up
+
+    kind, n, gxy, capacities, seed = case
+    coords, radii = column_plan_scene(kind, n, seed)
+    c, r = torch.from_numpy(coords).to(cuda), torch.from_numpy(radii).to(cuda)
+    if kind == "power_law":
+        r = hetero._split(c, r, None)[2]
+    config = columns.default_column_config(n, gxy=gxy)
+    want = columns.plan_columns_plain(c, r, *config)
+    if capacities == "adopted":
+        config = (config[0],
+                  max(config[1], round_up(int(want.max_col), columns.CHUNK)),
+                  max(config[2], int(want.max_slab_rows) + 2))
+        want = columns.plan_columns_plain(c, r, *config)
+        assert bool(want.ok)
+    before = _build.LAUNCHES["column_plan"]
+    plans = tracing.PLANS["retry"]
+    got = columns.plan_columns(c, r, *config, by="retry")
+    assert _build.LAUNCHES["column_plan"] == before + 1
+    assert tracing.PLANS["retry"] == plans + 1
+    assert got.stream.is_cuda and got.w0.is_cuda
+    assert plan_mismatches(got, want) == []
+    assert plan_mismatches(column_plan.build_plan(c, r, *config), want) == []
+
+
+def test_column_plan_chain_makes_no_host_sync(cuda):
+    """The chain reads nothing back on the host (the sync debug mode would
+    raise on one) and counts no host sync; the plain path on the same
+    tensors counts its five. The chain takes float32 alone."""
+    from collision_tpu_torch import tracing
+    from collision_tpu_torch.kernels import column_plan
+
+    coords, radii = _scene(100_000, 1 / np.sqrt(100_000), 31)
+    c, r = coords.to(cuda), radii.to(cuda)
+    config = columns.default_column_config(100_000)
+    columns.plan_columns(c, r, *config)
+    torch.cuda.synchronize()
+    syncs = sum(tracing.HOST_SYNCS.values())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = columns.plan_columns(c, r, *config)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sum(tracing.HOST_SYNCS.values()) == syncs and bool(plan.ok)
+    before = _build.LAUNCHES["column_plan"]
+    columns.plan_columns_plain(c, r, *config)
+    assert _build.LAUNCHES["column_plan"] == before
+    assert sum(tracing.HOST_SYNCS.values()) == syncs + 5
+    with pytest.raises(ValueError):
+        column_plan.build_plan(c.double(), r.double(), *config)
+    assert _build.LAUNCHES["column_plan"] == before
+
+
+def test_dense_frame_launches_the_column_plan_chain(cuda):
+    """One frame of the benchmark's dense scene through
+    ``Collider.get_collisions`` at 110,000,000: four plans, each one chain
+    launch (auto's attempt, the retry's two statistics plans, the rung's),
+    16 host syncs where the plain plans made 36, and the plain reference's
+    count and pair digest."""
+    import importlib.util
+
+    from collision_tpu_torch import tracing
+
+    coords, radii, bench = _dense_frame(3_000_000_022, 5)
+    n = coords.shape[0]
+    collider = Collider(n)
+    collider.get_collisions(coords, radii, 110_000_000)
+    torch.cuda.synchronize()
+    tracing.reset()
+    count, pairs = collider.get_collisions(coords, radii, 110_000_000)
+    torch.cuda.synchronize()
+    assert tracing.LAUNCHES["column_plan"] == 4
+    assert dict(tracing.PLANS) == {"engine": 2, "retry": 2}
+    assert dict(tracing.ATTEMPTS) == {"column": 2}
+    assert sum(tracing.HOST_SYNCS.values()) == 16, dict(tracing.HOST_SYNCS)
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, bench / path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    digest = load("bench_digest", "digest.py")
+    ref = load("box_overlap", "references/box_overlap.py")
+    got, bad, tail = digest.check_buffer(pairs, int(count), n)
+    del pairs
+    assert bad == 0 and tail == 0
+    total, want = 0, 0
+    for a, b in ref.pairs(coords, radii, torch.float32):
+        total += a.shape[0]
+        want += digest.key_sum(a, b, n)
+    assert int(count) == total
+    assert got == want % digest.MOD
 
 
 def _diag_scene(kind):

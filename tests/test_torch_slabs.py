@@ -12,7 +12,7 @@ from collision_tpu import slabs as jslabs
 from collision_tpu_torch import slabs
 from collision_tpu_torch.kernels import slab_plan
 from collision_tpu_torch.testing.scenes import (SLAB_PLAN_KINDS,
-                                                slab_plan_mismatches,
+                                                plan_mismatches,
                                                 slab_plan_scene)
 
 PLAN_TENSORS = ("starts", "w0", "wcap", "ok", "max_col", "max_slab_rows",
@@ -155,7 +155,7 @@ def test_build_plan_on_cpu_is_the_plain_plan(kind, n, gx):
     want = slabs.plan_slabs_plain(c, r, *config)
     for got in (slab_plan.build_plan(c, r, *config),
                 slabs.plan_slabs(c, r, *config)):
-        assert slab_plan_mismatches(got, want) == []
+        assert plan_mismatches(got, want) == []
     jp = jslabs.plan_slabs(jnp.asarray(coords), jnp.asarray(radii), *config)
     d = _jax_fields(jp)
     _assert_plans_equal(d, want)
